@@ -1,0 +1,21 @@
+"""starcoder2-15b [dense] — arXiv:2402.19173.
+
+40L d_model=6144 48H (GQA kv=4) d_ff=24576 vocab=49152; GQA, RoPE.
+"""
+
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="starcoder2-15b",
+    family="dense",
+    n_layers=40,
+    d_model=6144,
+    n_heads=48,
+    n_kv_heads=4,
+    d_ff=24576,
+    vocab_size=49152,
+    head_dim=128,
+    norm="layernorm",
+    act="gelu",
+    rope_theta=1e5,
+)
