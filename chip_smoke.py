@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives its serving path with full-width, full-depth phi3-mini-3.8b
-(random weights from a seed).  Phases, each of which raises on a failed
-check:
+drives its serving path with full-width, full-depth phi3-mini-3.8b and
+its training-and-recovery path with full-width phi3-mini-3.8b cut to 2
+layers (random weights from a seed).  Phases, each of which raises on a
+failed check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, TF32 off, and the kernels' build time;
@@ -25,7 +26,30 @@ check:
    plain path's top two logits tie within the float32 bound is reported
    as a tie);
 5. the phase-2 requests over an int8 pool through the int8 kernel, with
-   token agreement against phase 2 reported.
+   token agreement against phase 2 reported;
+6. the flash-attention kernels (forward, and backward through autograd)
+   against their plain version: phi3 heads (32/32, D 96) at the training
+   shape (B 4, T 512) and starcoder2-7b's (36 over 4, D 128), a ragged
+   T 200 and Tq < Tk, float32 and bfloat16, with the float32 gradients
+   also held against a float64 computation; the kernel path refuses
+   prefix_len != 0 and
+   Tq > Tk; then forward and backward times at the training shape (B 4,
+   T 512, phi3 heads, bf16) beside their bounds, the plain version's and
+   ``scaled_dot_product_attention``'s;
+7. the XOR kernel against its plain version, R = 2, 4, 8, byte-exact;
+8. ``Trainer`` as ``examples/quickstart.py`` drives it (BUDDY with async
+   drain, IntervalPolicy(4), node 3 killed at step 6 of 8) with phi3 at
+   full width and 2 layers, B 4 x T 512, deterministic algorithms and
+   TF32 off: one recovery from step 4, the loss falls, flash launches
+   are 2 forward (remat) + 1 backward pass (3 launches) per layer per
+   step with no plain or library attention call, and the final state's
+   SHA-256 equals an
+   uninterrupted run's; step ms, checkpoint bytes and seconds, restore
+   seconds, peak device memory and free disk reported;
+9. the phase-8 state checkpointed with NAM_XOR, node 3 killed and the
+   state restored byte-identically; each XOR group's fragments stacked on
+   the card and reduced through the XOR kernel equal the NAM parity the
+   SCR stored; the kernel timed at that shape.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -39,23 +63,41 @@ import gc
 import hashlib
 import itertools
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# deterministic cuBLAS for the training phases: read when cuBLAS starts
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.api import IntervalPolicy, ResilienceSession  # noqa: E402
+from repro_torch.cluster.topology import NodeState, VirtualCluster  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import parity  # noqa: E402
+from repro_torch.core.scr import SCRManager, Strategy, _nam_region  # noqa: E402
+from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
+from repro_torch.io.serialization import serialize_state_stream  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import xor_parity as xp  # noqa: E402
+from repro_torch.memory.stack import TierStack  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves  # noqa: E402
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
+from repro_torch.train.step import init_train_state  # noqa: E402
+from repro_torch.train.trainer import FailureEvent, Trainer  # noqa: E402
 
 SEED = 0
 F32_TOL = dict(atol=3e-6, rtol=1e-5)     # tests/test_paged_attention.py
@@ -67,6 +109,22 @@ DEVICE = "cuda"
 SERVE = dict(arch="phi3-mini-3.8b", full_size=True, prefix=False, slots=4,
              max_len=256, page_tokens=16, quantum=4, device=DEVICE)
 N_REQUESTS, MAX_NEW = 8, 32
+FLASH_F32_TOL = dict(atol=3e-6, rtol=1e-5)   # tests/test_kernels.py:35-73
+FLASH_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
+# float32 gradients sum up to g * T = 9 * 512 products per element; the
+# plain version itself lies up to 6.4e-6 from a float64 computation at the
+# starcoder2-7b shape, so two float32 summation orders may differ by about
+# twice that: the backward is held at atol 2e-5 against the plain version,
+# and beside that the kernel's distance to the float64 computation may not
+# exceed the larger of the plain version's distance and FLASH_F64_ATOL
+FLASH_BWD_F32_TOL = dict(atol=2e-5, rtol=1e-5)
+FLASH_F64_ATOL = 1e-5
+# the training run: phi3-mini-3.8b at published width, depth cut to 2
+TRAIN = dict(arch="phi3-mini-3.8b", layers=2, batch=4, seq=512, steps=8,
+             ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3, warmup=4)
+# free disk a 2-layer run needs: BUDDY keeps 2 checkpoints of ~5.1 GB,
+# each as local, buddy and global copies
+TRAIN_DISK_2L = 40 * 2**30
 
 
 def say(*parts) -> None:
@@ -419,6 +477,378 @@ def phase4(prompts) -> None:
     release()
 
 
+# ---------------------------------------------------------------------- #
+# phase 6: flash attention against its plain version
+# ---------------------------------------------------------------------- #
+
+
+def flash_inputs(b, tq, tk, hq, hkv, d, dtype, seed=SEED):
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def mk(*shape):
+        return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
+
+    return mk(b, tq, hq, d), mk(b, tk, hkv, d), mk(b, tk, hkv, d), mk(b, tq, hq, d)
+
+
+def flash_grads(q, k, v, dout, use_kernel):
+    """(out, dq, dk, dv) through ops.flash_attention and autograd."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(q, k, v, use_kernel=use_kernel)
+    return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
+
+
+def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward) -> tuple:
+    """Least time for one call: q, k, v (and o, dO for the backward) read
+    once, o or dq, dk, dv written once, plus the f32 log-sum-exp; against
+    2 flops per multiply-add over the causal (query, key) pairs this run
+    has (2 products forward, 5 backward) at the inputs' peak rate."""
+    pairs = sum(min(tk, i + 1 + tk - tq) for i in range(tq))
+    q_bytes, kv_bytes = b * tq * hq * d * elem, b * tk * hkv * d * elem
+    lse = b * hq * tq * 4
+    if backward:
+        nbytes = 3 * q_bytes + 2 * kv_bytes + lse + q_bytes + 2 * kv_bytes
+        flops = 5 * 2 * b * hq * pairs * d
+    else:
+        nbytes = q_bytes + 2 * kv_bytes + q_bytes + lse
+        flops = 2 * 2 * b * hq * pairs * d
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS["bfloat16" if elem == 2 else "float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase6() -> dict:
+    say("== phase 6: flash attention, forward and backward, against the "
+        "plain version")
+    f32, bf16 = torch.float32, torch.bfloat16
+    shapes = {   # the first is the training shape of phase 8
+        f"phi3 B={TRAIN['batch']} T={TRAIN['seq']}": (
+            TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], 32, 32, 96),
+        "phi3 T=200": (2, 200, 200, 32, 32, 96),
+        "phi3 Tq=100 < Tk=300": (2, 100, 300, 32, 32, 96),
+        "starcoder2-7b T=512": (1, 512, 512, 36, 4, 128),
+        "starcoder2-7b T=200": (2, 200, 200, 36, 4, 128),
+    }
+    errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
+    for label, shape in shapes.items():
+        for dtype in (f32, bf16):
+            tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            tag = f"{label} {str(dtype)[6:]}"
+            q, k, v, dout = flash_inputs(*shape, dtype)
+            got = flash_grads(q, k, v, dout, None)
+            want = flash_grads(q, k, v, dout, False)
+            errs["flash_attention_fwd"] = max(
+                errs["flash_attention_fwd"],
+                check_close(f"flash fwd {tag}", got[0], want[0], **tol))
+            for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+                errs["flash_attention_bwd"] = max(
+                    errs["flash_attention_bwd"],
+                    check_close(f"flash bwd {name} {tag}", g, w, **bwd_tol))
+            if dtype == f32:
+                exact = flash_grads(q.double(), k.double(), v.double(),
+                                    dout.double(), False)
+                dist = lambda xs: max((x.double() - e).abs().max().item()
+                                      for x, e in zip(xs, exact[1:]))
+                kern_d, plain_d = dist(got[1:]), dist(want[1:])
+                say(f"    distance to float64, dQ/dK/dV: kernel {kern_d:.3e}, "
+                    f"plain {plain_d:.3e} (limit max(plain, {FLASH_F64_ATOL}))")
+                if kern_d > max(plain_d, FLASH_F64_ATOL):
+                    raise AssertionError(f"flash bwd {tag}: the kernel lies "
+                                         f"{kern_d:.3e} from float64")
+                del exact
+    torch.cuda.synchronize()
+    q, k, v, _ = flash_inputs(1, 64, 32, 4, 4, 96, bf16)
+    for what, call in (("prefix_len=4", lambda: ops.flash_attention(
+                            q[:, :32], k, v, prefix_len=4)),
+                       ("Tq=64 > Tk=32", lambda: ops.flash_attention(q, k, v))):
+        try:
+            call()
+        except ValueError as e:
+            say(f"  kernel path refuses {what}: {e}")
+        else:
+            raise AssertionError(f"the flash kernel path accepted {what}")
+
+    # times at the training shape, bf16
+    F = torch.nn.functional
+    b, t, h, d = TRAIN["batch"], TRAIN["seq"], 32, 96
+    q, k, v, dout = flash_inputs(b, t, t, h, h, d, bf16)
+    out, lse = fa.flash_attention_fwd(q, k, v)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    plain_out = ref.flash_attention(qr, kr, vr)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dout_t = dout.transpose(1, 2)
+    timed = {
+        "flash_attention_fwd": (
+            lambda: fa.flash_attention_fwd(q, k, v),
+            lambda: ref.flash_attention(q, k, v),
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+            flash_bound_ms(b, t, t, h, h, d, 2, backward=False)),
+        "flash_attention_bwd": (
+            lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
+            lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout,
+                                        retain_graph=True),
+            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                        retain_graph=True),
+            flash_bound_ms(b, t, t, h, h, d, 2, backward=True)),
+    }
+    rec = {}
+    for name, (kern, plain, lib, (bound, bound_by)) in timed.items():
+        ms = time_ms(kern, iters=50)
+        plain_ms = time_ms(plain, iters=10, warmup=2)
+        library_ms = time_ms(lib, iters=50)
+        rec[name] = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123",
+            "launches": 0, "max_abs_err": errs[name], "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "shape": {"B": b, "T": t, "Hq": h, "Hkv": h, "D": d,
+                      "dtype": "bfloat16", "causal": True},
+        }
+        say(f"  {name} at the training shape: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({bound_by})")
+    rec["flash_attention_bwd"]["note"] = (
+        "the reference has no backward kernel: JAX differentiates "
+        "layers.flash_attention, whose TPU kernel the forward replaces; "
+        "one backward pass is 3 launches (delta, dQ, dK/dV), each counted, "
+        "and ms is the time of one pass")
+    return rec
+
+
+# ---------------------------------------------------------------------- #
+# phase 7: the XOR kernel against its plain version
+# ---------------------------------------------------------------------- #
+
+
+def phase7() -> None:
+    say("== phase 7: XOR reduce against the plain version")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    for r in (2, 4, 8):
+        m = 1000 + 37 * r            # not a multiple of any block size
+        x = torch.randint(-2**31, 2**31 - 1, (r, m, 128), generator=gen,
+                          dtype=torch.int32, device=DEVICE)
+        got = ops.xor_reduce(x)
+        want = ops.xor_reduce(x, use_kernel=False)
+        if not torch.equal(got, want):
+            raise AssertionError(f"XOR kernel differs from its plain version "
+                                 f"at R={r}, M={m}")
+        say(f"  xor_reduce R={r} M={m}: byte-exact")
+
+
+# ---------------------------------------------------------------------- #
+# phases 8-9: train, survive a node kill, NAM_XOR parity
+# ---------------------------------------------------------------------- #
+
+
+def train_arch(layers: int):
+    return dataclasses.replace(get_config(TRAIN["arch"]), n_layers=layers)
+
+
+def dir_bytes(root: Path) -> int:
+    return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
+
+
+def train_run(cfg, root: Path, failures, keep_state=False):
+    """``examples/quickstart.py``'s loop on the card; returns the report,
+    the final checkpoint's manifest, bytes on disk and (optionally) the
+    final state restored to host tensors."""
+    cluster = VirtualCluster(n_cluster=4, n_booster=4, root=root)
+    scr = SCRManager(cluster, TierStack.for_cluster(cluster),
+                     strategy=Strategy.BUDDY, procs_per_node=2,
+                     async_drain=True)
+    pipeline = TokenPipeline(cfg.vocab_size, global_batch=TRAIN["batch"],
+                             seq_len=TRAIN["seq"], seed=SEED)
+    state = None
+    with ResilienceSession(scr, policy=IntervalPolicy(TRAIN["ckpt_every"])
+                           ) as session:
+        trainer = Trainer(cfg, get_model(cfg), pipeline, session,
+                          opt_cfg=AdamWConfig(lr=TRAIN["lr"],
+                                              warmup_steps=TRAIN["warmup"]),
+                          failure_schedule=failures, seed=SEED, device=DEVICE)
+        report = trainer.run(total_steps=TRAIN["steps"])
+        manifest = scr._descriptor(TRAIN["steps"])["manifest"]
+        on_disk = dir_bytes(root)
+        if keep_state:
+            template = init_train_state(SEED, cfg, trainer.model, DEVICE)
+            t0 = time.perf_counter()
+            state, _ = session.restore_latest(template)
+            report.restore_wall_s.append(time.perf_counter() - t0)
+            del template
+    cluster.teardown()
+    return report, manifest, on_disk, state
+
+
+def report_train(tag, report, manifest, on_disk):
+    steps = sorted(report.step_wall_s[1:])
+    say(f"  {tag}: steps_run={report.steps_run} failures={report.failures} "
+        f"recoveries={report.recoveries} restarts_from={report.restarts_from_step}")
+    say(f"  {tag}: loss {report.losses[0]:.4f} -> {report.losses[-1]:.4f}; "
+        f"step median {1e3 * steps[len(steps) // 2]:.1f} ms (first step "
+        f"{1e3 * report.step_wall_s[0]:.1f} ms)")
+    say(f"  {tag}: {report.checkpoints} checkpoints of "
+        f"{manifest['total_bytes']} state bytes, commit wall s "
+        f"{[round(x, 3) for x in report.checkpoint_wall_s]}, final drain "
+        f"barrier {report.drain_wait_s:.3f} s, drains completed "
+        f"{report.drains_completed}, restore wall s "
+        f"{[round(x, 3) for x in report.restore_wall_s]}, {on_disk} bytes "
+        f"on disk at the end")
+
+
+def phase8() -> tuple:
+    say("== phase 8: train phi3-mini-3.8b and survive a node kill")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_train_"))
+    free = shutil.disk_usage(tmp).free
+    layers = TRAIN["layers"] if free >= TRAIN_DISK_2L else 1
+    cfg = train_arch(layers)
+    say(f"  free disk under {tmp.parent}: {free} bytes; phi3-mini-3.8b at "
+        f"published width (d_model {cfg.d_model}, {cfg.n_heads} heads of "
+        f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"depth cut 32 -> {layers} layers; B {TRAIN['batch']} x T "
+        f"{TRAIN['seq']}, {TRAIN['steps']} steps, BUDDY async drain, "
+        f"IntervalPolicy({TRAIN['ckpt_every']}), node {TRAIN['fail_rank']} "
+        f"killed at step {TRAIN['fail_step']}")
+    torch.use_deterministic_algorithms(True)
+    say(f"  deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG="
+        f"{os.environ['CUBLAS_WORKSPACE_CONFIG']}, TF32 off")
+    try:
+        clean, clean_manifest, disk, state = train_run(
+            cfg, tmp / "clean", None, keep_state=True)
+        report_train("uninterrupted", clean, clean_manifest, disk)
+        release()
+
+        # the main path: counts from zero, plain and library attention
+        # wrapped to count any call
+        calls = {"plain": 0, "sdpa": 0}
+        plain_fn = ref.flash_attention
+        sdpa_fn = torch.nn.functional.scaled_dot_product_attention
+
+        def counted(name, fn):
+            def wrapper(*a, **kw):
+                calls[name] += 1
+                return fn(*a, **kw)
+            return wrapper
+
+        ref.flash_attention = counted("plain", plain_fn)
+        torch.nn.functional.scaled_dot_product_attention = counted("sdpa", sdpa_fn)
+        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            faulty, manifest, disk, _ = train_run(
+                cfg, tmp / "faulty",
+                [FailureEvent(step=TRAIN["fail_step"], rank=TRAIN["fail_rank"])])
+        finally:
+            ref.flash_attention = plain_fn
+            torch.nn.functional.scaled_dot_product_attention = sdpa_fn
+        fwd, bwd = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        peak = torch.cuda.max_memory_allocated()
+        report_train("node kill", faulty, manifest, disk)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"  node kill: flash launches forward {fwd}, backward {bwd} over "
+        f"{faulty.steps_run} steps x {layers} layers; plain attention calls "
+        f"{calls['plain']}, sdpa calls {calls['sdpa']}; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if faulty.recoveries != 1 or faulty.restarts_from_step != [TRAIN["ckpt_every"]]:
+        raise AssertionError(f"want one recovery from step {TRAIN['ckpt_every']}, "
+                             f"got {faulty.recoveries} from "
+                             f"{faulty.restarts_from_step}")
+    if not faulty.losses[-1] < faulty.losses[0]:
+        raise AssertionError("the loss did not fall")
+    if (fwd != 2 * layers * faulty.steps_run
+            or bwd != 3 * layers * faulty.steps_run):
+        raise AssertionError(f"flash launches fwd {fwd}, bwd {bwd}: want "
+                             f"{2 * layers} forward (remat) and {3 * layers} "
+                             f"backward (one pass of 3 per layer) per step")
+    if calls["plain"] or calls["sdpa"]:
+        raise AssertionError(f"the training path called plain or library "
+                             f"attention: {calls}")
+    if (manifest["sha256"], manifest["total_bytes"]) != (
+            clean_manifest["sha256"], clean_manifest["total_bytes"]):
+        raise AssertionError("the recovered run's final state differs from "
+                             "the uninterrupted run's")
+    say(f"  final state byte-identical to the uninterrupted run: sha256 "
+        f"{manifest['sha256'][:16]}.. over {manifest['total_bytes']} bytes")
+    main_path = {"arch": TRAIN["arch"], "layers": layers,
+                 "layers_published": get_config(TRAIN["arch"]).n_layers,
+                 "batch": TRAIN["batch"], "seq": TRAIN["seq"],
+                 "steps_run": faulty.steps_run}
+    return state, cfg, {"fwd": fwd, "bwd": bwd, "main_path": main_path}
+
+
+def phase9(state) -> dict:
+    say("== phase 9: NAM_XOR checkpoint of the phase-8 state, node kill, "
+        "parity through the XOR kernel")
+    step = TRAIN["steps"]
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nam_"))
+    cluster = VirtualCluster(n_cluster=4, n_booster=4, root=tmp)
+    try:
+        with ResilienceSession.for_cluster(cluster, strategy=Strategy.NAM_XOR,
+                                           procs_per_node=2) as session:
+            t0 = time.perf_counter()
+            session.save(step, state)
+            session.wait_drained()
+            save_s = time.perf_counter() - t0
+            cluster.fail(TRAIN["fail_rank"], NodeState.FAILED_NODE)
+            session.invalidate_node(TRAIN["fail_rank"])
+            cluster.recover(TRAIN["fail_rank"])
+            session.invalidate_node(TRAIN["fail_rank"])
+            t0 = time.perf_counter()
+            restored, got = session.restore_latest(state)
+            restore_s = time.perf_counter() - t0
+            same = got == step and all(
+                torch.equal(a, b) for a, b in zip(tree_leaves(restored),
+                                                  tree_leaves(state)))
+            say(f"  NAM_XOR save + drain {save_s:.3f} s, restore after the "
+                f"kill of node {TRAIN['fail_rank']} {restore_s:.3f} s, "
+                f"byte-identical: {same}")
+            if not same:
+                raise AssertionError("NAM_XOR restore is not byte-identical")
+            del restored
+            scr = session.scr
+            frags = serialize_state_stream(state, step=step).fragments(
+                cluster.size * scr.procs_per_node)
+            xp.xor_reduce.launches = 0
+            stacks = []
+            for gid, group in enumerate(cluster.xor_groups):
+                node_frags = [scr._node_fragment(frags, n) for n in group]
+                stacked = parity.pack_words(node_frags, device=DEVICE)
+                out = parity.unpack_words(parity.xor_reduce(stacked),
+                                          len(node_frags[0]))
+                if out != scr.stack.get(_nam_region(step, gid)):
+                    raise AssertionError(f"XOR kernel parity of group {gid} "
+                                         f"differs from the stored NAM parity")
+                say(f"  group {gid} (nodes {group}): kernel parity of "
+                    f"{len(node_frags[0])} bytes per fragment equals the "
+                    f"NAM parity")
+                stacks.append(stacked)
+                del node_frags
+            launches = xp.xor_reduce.launches
+            del frags
+    finally:
+        cluster.teardown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    stacked = stacks[0]
+    r, m, _ = stacked.shape
+    ms = time_ms(lambda: xp.xor_reduce(stacked), iters=20, warmup=3)
+    plain_ms = time_ms(lambda: ref.xor_reduce(stacked), iters=5, warmup=1)
+    bound = (r + 1) * m * 512 / HBM_BYTES_PER_S * 1e3
+    say(f"  xor_reduce at R={r}, M={m}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    return {"name": "xor_reduce", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/xor_parity.cu",
+            "replaces": "src/repro/kernels/xor_parity.py:47",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None,
+            "shape": {"R": r, "M": m, "lanes": 128, "dtype": "int32"}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -440,7 +870,8 @@ def main() -> int:
     say(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for name, log in _build.build_log.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if ("registers" in line or "spill" in line
+                    or "entry function" in line):
                 say(f"  [{name}] {line.strip()}")
 
     kernels = phase1()
@@ -484,6 +915,19 @@ def main() -> int:
     total = sum(len(o) for o in outs2)
     say(f"  int8 token agreement with phase 2: {same}/{total} = "
         f"{same / total:.4f} (reported, not gated)")
+
+    del outs2, outs3, outs5
+    release()
+    kernels.update(phase6())
+    phase7()
+    state, cfg, launches = phase8()
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        kernels[name]["launches"] = launches[name.rsplit("_", 1)[1]]
+        kernels[name]["main_path"] = launches["main_path"]
+    release()
+    kernels["xor_reduce"] = phase9(state)
+    del state
+    release()
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

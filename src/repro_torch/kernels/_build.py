@@ -24,6 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures of every entry point, by library
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "paged_attention": {
@@ -31,6 +32,13 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
             [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
         "repro_paged_attention_quant":
             [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+    },
+    "flash_attention": {
+        "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_F, _I, _P],
+        "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+    },
+    "xor_parity": {
+        "repro_xor_reduce": [_P, _P, _I, _L, _I, _P],
     },
 }
 

@@ -1,4 +1,5 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the port's kernels: paged attention, flash
+attention and the XOR parity reduce.
 
 Each function is the obvious, untiled computation its kernel performs,
 written as the reference's jnp oracles are (``repro/kernels/ref.py`` and
@@ -162,3 +163,47 @@ def paged_attention_quant_multitok(
         v_scales, page_table.repeat_interleave(t, dim=0),
         positions.reshape(b * t) + 1, scale=scale)
     return out.reshape((b, t) + out.shape[1:])
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Tq, Hq, D)
+    k: torch.Tensor,          # (B, Tk, Hkv, D)
+    v: torch.Tensor,          # (B, Tk, Hkv, Dv)
+    causal: bool = True,
+    scale: Optional[float] = None,
+    prefix_len: int = 0,      # prefix-LM: the first keys are visible to all
+) -> torch.Tensor:
+    """Exact attention computed as ``flash_attention_pallas`` computes it:
+    scores from f32 copies of q and k, keys after ``q_pos = row + Tk -
+    Tq`` masked with :data:`NEG_INF` (causal), softmax statistics in f32,
+    ``p`` cast to V's dtype before ``p.V``, output in q's dtype.  GQA
+    repeats each kv head over its group.  Differentiable: autograd through
+    it is the plain version of the backward kernel.  float64 inputs are
+    computed in float64 (an oracle for the float32 paths)."""
+    b, tq, hq, d = q.shape
+    tk, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(acc).repeat_interleave(g, dim=2)
+    vf = v.repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) * scale
+    if causal:
+        q_pos = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        k_pos = torch.arange(tk, device=q.device)[None, :]
+        visible = (k_pos <= q_pos) | (k_pos < prefix_len)
+        s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    pv = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).to(acc), vf.to(acc))
+    out = pv / torch.clamp(l, min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def xor_reduce(stacked: torch.Tensor) -> torch.Tensor:
+    """(R, M, 128) int32 -> (M, 128): XOR over axis 0."""
+    out = stacked[0].clone()
+    for i in range(1, stacked.shape[0]):
+        out ^= stacked[i]
+    return out

@@ -1,3 +1,55 @@
-"""Memory layer: the int8 codec math and the tier errors the paged pool
-needs.  The tier stack and the byte codecs wait for the resilient-serving
-slice."""
+"""Memory layer: tiers, the BufferStore protocol, codecs and the tier
+stack.  ``memory/shared.py`` waits for the fleet slice of ROADMAP.md."""
+
+from repro_torch.memory.tiers import (
+    TierKind,
+    TierSpec,
+    CapacityError,
+    MemoryTier,
+    MemoryHierarchy,
+    WallClockThrottle,
+    DEEPER_TIERS,
+    TPU_V5E_TIERS,
+)
+from repro_torch.memory.store import BufferStore, NAMStore
+from repro_torch.memory.codecs import (
+    Codec,
+    CodecRule,
+    Int8Codec,
+    ZlibCodec,
+    int8_dequantize,
+    int8_quantize,
+    make_codec,
+)
+from repro_torch.memory.stack import (
+    HitRatePromotion,
+    KeyClass,
+    PlacementRule,
+    TierStack,
+    classify_key,
+)
+
+__all__ = [
+    "TierKind",
+    "TierSpec",
+    "CapacityError",
+    "MemoryTier",
+    "MemoryHierarchy",
+    "WallClockThrottle",
+    "DEEPER_TIERS",
+    "TPU_V5E_TIERS",
+    "BufferStore",
+    "NAMStore",
+    "Codec",
+    "CodecRule",
+    "Int8Codec",
+    "ZlibCodec",
+    "int8_dequantize",
+    "int8_quantize",
+    "make_codec",
+    "HitRatePromotion",
+    "KeyClass",
+    "PlacementRule",
+    "TierStack",
+    "classify_key",
+]

@@ -3,8 +3,9 @@
 Counterpart of ``repro/models/layers.py``: the same param tables
 (``LeafSpec`` trees with logical axis names), the same init kinds and
 scales, and the same norms, activations, rotary embeddings and decode
-attention, with the same dtype handling.  ``flash_attention`` waits for
-the training slice.
+attention, with the same dtype handling.  :func:`flash_attention` is
+the training attention: the hand-written CUDA kernel (forward and
+backward) for CUDA tensors, its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -15,6 +16,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels import ops
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -206,6 +209,22 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 def _mask_value(dtype=None) -> torch.Tensor:
     return torch.tensor(-0.7 * float(torch.finfo(torch.float32).max),
                         dtype=torch.float32)
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Tq, Hq, D)
+    k: torch.Tensor,          # (B, Tk, Hkv, D)
+    v: torch.Tensor,          # (B, Tk, Hkv, Dv)
+    causal: bool = True,
+    prefix_len: int = 0,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Exact causal GQA attention, differentiable.  The reference's jnp
+    version is the one whose TPU kernel is ``flash_attention_pallas``;
+    here :func:`repro_torch.kernels.ops.flash_attention` picks the CUDA
+    kernel or the plain version by device."""
+    return ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
+                               scale=scale)
 
 
 def decode_attention(

@@ -1,14 +1,17 @@
-"""Dense transformer family, decode path: starcoder2 / phi3 / gemma-style.
+"""Dense transformer family: starcoder2 / phi3 / gemma-style.
 
 Counterpart of ``repro/models/transformer.py`` with the same param and
 cache tables (layer-stacked ``(L, ...)`` leaves under the same key
-paths) and the same decode arithmetic.  ``paged_decode_step`` runs its
-attention through :func:`repro_torch.kernels.ops.paged_attention` (or the
-int8 form): the hand-written CUDA kernel for CUDA tensors, the plain
-gather + decode attention for CPU tensors.
+paths) and the same arithmetic.  ``forward`` (training) runs its
+attention through :func:`repro_torch.models.layers.flash_attention`, and
+``paged_decode_step`` through :func:`repro_torch.kernels.ops.paged_attention`
+(or the int8 form): the hand-written CUDA kernels for CUDA tensors, the
+plain versions for CPU tensors.  ``remat=True`` recomputes each layer in
+the backward pass (``torch.utils.checkpoint``, where the reference has
+``jax.checkpoint``).
 
-Waits for later slices: ``forward`` (training, with the flash kernel) and
-MLA decode (minicpm3), both listed in ROADMAP.md.
+Waits for later slices: the MLA branch (minicpm3), ``prefix_embeds``
+(paligemma) and the sequence-parallel forwards, all listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
@@ -162,6 +166,33 @@ def _rope_tables(cfg: ArchConfig, positions: torch.Tensor):
     return L.rope_freqs(dim, cfg.rope_theta, positions)
 
 
+def attention_block(
+    p: Dict[str, torch.Tensor],
+    x: torch.Tensor,              # (B, T, D)
+    cfg: ArchConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    prefix_len: int = 0,
+    causal: bool = True,
+) -> torch.Tensor:
+    if cfg.mla is not None:
+        raise NotImplementedError(_MLA_WAITS)
+    b, t, _ = x.shape
+    cd = L.torch_dtype(cfg.compute_dtype)
+    xc = x.to(cd)
+    hq = cfg.padded_heads
+    dh = cfg.resolved_head_dim
+    hkv = cfg.padded_kv_heads
+    q = (xc @ p["wq"].to(cd)).reshape(b, t, hq, dh)
+    k = (xc @ p["wk"].to(cd)).reshape(b, t, hkv, dh)
+    v = (xc @ p["wv"].to(cd)).reshape(b, t, hkv, dh)
+    if cfg.rope_theta > 0:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    out = L.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+    return (out.reshape(b, t, hq * dh) @ p["wo"].to(cd)).to(x.dtype)
+
+
 def ffn_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig
               ) -> torch.Tensor:
     cd = L.torch_dtype(cfg.compute_dtype)
@@ -174,10 +205,57 @@ def ffn_block(p: Dict[str, torch.Tensor], x: torch.Tensor, cfg: ArchConfig
     return (h @ p["wd"].to(cd)).to(x.dtype)
 
 
-def forward(params, batch, cfg: ArchConfig, **kw):
-    raise NotImplementedError(
-        "the full-sequence forward waits for the training slice of "
-        "ROADMAP.md (forward with the flash-attention kernel)")
+def decoder_layer(
+    lp: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ArchConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    prefix_len: int = 0,
+) -> torch.Tensor:
+    x = x + attention_block(
+        lp["attn"], L.apply_norm(cfg, x, lp["ln1"]), cfg, cos, sin, prefix_len
+    )
+    x = x + ffn_block(lp["ffn"], L.apply_norm(cfg, x, lp["ln2"]), cfg)
+    return x
+
+
+# ---------------------------------------------------------------------- #
+# full-sequence forward (train / prefill)
+# ---------------------------------------------------------------------- #
+
+
+def forward(
+    params: Dict[str, Any],
+    batch: Dict[str, torch.Tensor],
+    cfg: ArchConfig,
+    remat: bool = True,
+    prefix_embeds: Optional[torch.Tensor] = None,
+    mesh=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Token sequence -> next-token logits.  With ``remat`` each layer's
+    activations are recomputed in the backward pass."""
+    if prefix_embeds is not None or mesh is not None:
+        raise NotImplementedError(
+            "prefix_embeds (paligemma) and the sequence-parallel forwards "
+            "wait for later slices of ROADMAP.md")
+    tokens = batch["tokens"]
+    cd = L.torch_dtype(cfg.compute_dtype)
+    x = L.embed_tokens(params["embed"], tokens, cd)
+    positions = torch.arange(x.shape[1], device=x.device)
+    cos, sin = _rope_tables(cfg, positions)
+    for li in range(cfg.n_layers):
+        lp = _layer(params["layers"], li)
+        if remat and torch.is_grad_enabled():
+            x = checkpoint(decoder_layer, lp, x, cfg, cos, sin,
+                           use_reentrant=False)
+        else:
+            x = decoder_layer(lp, x, cfg, cos, sin)
+    x = L.apply_norm(cfg, x, params["ln_f"])
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return L.lm_logits(x, head, cfg.vocab_size, cd), {}
 
 
 # ---------------------------------------------------------------------- #

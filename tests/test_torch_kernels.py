@@ -208,3 +208,132 @@ def test_decode_attention_ref_matches_reference():
     got = tref.decode_attention_ref(t(q), t(kc), t(vc), t(lengths))
     want = jref.decode_attention_ref(q, kc, vc, lengths)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+# ---------------------------------------------------------------------- #
+# flash attention and the XOR reduce
+# ---------------------------------------------------------------------- #
+
+FLASH_CASES = [
+    # b, tq, tk, hq, hkv, d, causal (the reference's tests/test_kernels.py)
+    pytest.param((1, 16, 16, 2, 2, 8, True), id="mha"),
+    pytest.param((2, 32, 32, 4, 2, 16, True), id="gqa"),
+    pytest.param((1, 24, 40, 4, 1, 8, True), id="gqa-offset"),
+    pytest.param((1, 16, 16, 2, 2, 8, False), id="full"),
+    pytest.param((2, 33, 33, 3, 3, 8, True), id="ragged"),
+]
+
+
+def flash_inputs(case, seed):
+    b, tq, tk, hq, hkv, d, _ = case
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, tq, hq, d)).astype(np.float32),
+            rng.standard_normal((b, tk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, tk, hkv, d)).astype(np.float32),
+            rng.standard_normal((b, tq, hq, d)).astype(np.float32))
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_plain_matches_pallas_and_jnp(case):
+    from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.models import layers as jlayers
+
+    q, k, v, _ = flash_inputs(case, seed=10)
+    causal = case[-1]
+    got = ops.flash_attention(t(q), t(k), t(v), causal=causal)
+    pallas = flash_attention_pallas(q, k, v, causal=causal, block_q=8,
+                                    block_k=8, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32_TOL)
+    jnp_flash = jlayers.flash_attention(q, k, v, causal=causal, q_chunk=8,
+                                        k_chunk=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnp_flash), **F32_TOL)
+
+
+def test_flash_plain_bf16_matches_pallas():
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    q, k, v, _ = flash_inputs((2, 16, 16, 4, 2, 8, True), seed=11)
+    got = ops.flash_attention(tb(q), tb(k), tb(v))
+    assert got.dtype == torch.bfloat16
+    pallas = flash_attention_pallas(*(jnp.asarray(x, jnp.bfloat16)
+                                      for x in (q, k, v)),
+                                    block_q=8, block_k=8, interpret=True)
+    np.testing.assert_allclose(as_np(got), as_np(pallas), atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[2],
+                                  FLASH_CASES[4]])
+def test_flash_plain_backward_matches_jax_grad(case):
+    """dQ, dK, dV of the plain version (the backward kernel's plain
+    version) against ``jax.grad`` of the reference's jnp flash attention;
+    float32 at ``atol=1e-5, rtol=1e-5``: O(1) gradients summed over
+    every query of a GQA group in different orders."""
+    import jax
+    from repro.models import layers as jlayers
+
+    q, k, v, dout = flash_inputs(case, seed=12)
+    causal = case[-1]
+
+    def jloss(q, k, v):
+        out = jlayers.flash_attention(q, k, v, causal=causal, q_chunk=8,
+                                      k_chunk=8)
+        return (out * dout).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq_, tk_, tv_ = (t(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq_, tk_, tv_, causal=causal)
+    got = torch.autograd.grad(out, (tq_, tk_, tv_), t(dout))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("r", [1, 2, 5])
+def test_xor_plain_matches_pallas_exactly(r):
+    from repro.kernels.xor_parity import xor_reduce_pallas
+
+    rng = np.random.default_rng(r)
+    x = rng.integers(-2**31, 2**31 - 1, size=(r, 37, 128), dtype=np.int32)
+    got = ops.xor_reduce(t(x))
+    want = xor_reduce_pallas(x, block_rows=8, interpret=True)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_flash_kernel_path_refuses_what_it_has_no_semantics_for():
+    from repro_torch.kernels import flash_attention as tfa
+    from repro_torch.kernels import xor_parity as txp
+
+    q, k, v, _ = flash_inputs((1, 16, 16, 2, 2, 8, True), seed=13)
+    with pytest.raises(ValueError, match="prefix"):
+        ops.flash_attention(t(q), t(k), t(v), prefix_len=4, use_kernel=True)
+    # the plain version keeps the reference's prefix-LM mask
+    plain = ops.flash_attention(t(q), t(k), t(v), prefix_len=4)
+    assert torch.isfinite(plain).all()
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.flash_attention(t(q), t(k), t(v), use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(t(q), t(k), t(v))
+    with pytest.raises(ValueError, match="CUDA"):
+        txp.xor_reduce(torch.zeros((2, 1, 128), dtype=torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_and_xor_kernels_match_plain_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for case in ((2, 200, 200, 32, 32, 96, True), (1, 100, 300, 36, 4, 128,
+                                                   True)):
+        q, k, v, dout = (t(x).to(dev) for x in flash_inputs(case, seed=14))
+        grads = []
+        for use_kernel in (None, False):
+            qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+            out = ops.flash_attention(qs, ks, vs, use_kernel=use_kernel)
+            grads.append((out,) + torch.autograd.grad(out, (qs, ks, vs), dout))
+        torch.testing.assert_close(grads[0][0], grads[1][0], **F32_TOL)
+        # gradients sum up to g * T products: chip_smoke.py's FLASH_BWD_F32_TOL
+        for g, w in zip(grads[0][1:], grads[1][1:]):
+            torch.testing.assert_close(g, w, atol=2e-5, rtol=1e-5)
+    x = torch.randint(-2**31, 2**31 - 1, (4, 1001, 128), dtype=torch.int32,
+                      device=dev)
+    assert torch.equal(ops.xor_reduce(x), ops.xor_reduce(x, use_kernel=False))
