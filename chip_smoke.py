@@ -6,7 +6,8 @@
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its serving path with full-width, full-depth phi3-mini-3.8b and
 its training-and-recovery path with full-width phi3-mini-3.8b cut to 2
-layers (random weights from a seed).  Phases, each of which raises on a
+layers, rwkv6-3b cut to 2 and zamba2-2.7b cut to 6 (random weights from
+a seed).  Phases, each of which raises on a
 failed check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -29,13 +30,15 @@ failed check:
    token agreement against phase 2 reported;
 6. the flash-attention kernels (forward, and backward through autograd)
    against their plain version: phi3 heads (32/32, D 96) at the training
-   shape (B 4, T 512) and starcoder2-7b's (36 over 4, D 128), a ragged
+   shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128) and zamba2's
+   shared block (32/32, D 80: the kernels' col < d branch), a ragged
    T 200 and Tq < Tk, float32 and bfloat16, with the float32 gradients
    also held against a float64 computation; the kernel path refuses
    prefix_len != 0 and
-   Tq > Tk; then forward and backward times at the training shape (B 4,
-   T 512, phi3 heads, bf16) beside their bounds, the plain version's and
-   ``scaled_dot_product_attention``'s;
+   Tq > Tk; then forward and backward times at both training shapes
+   (B 4, T 512, bf16: phi3 heads, and zamba2's shared block at D 80,
+   recorded under ``at_head_dim_80``) beside their bounds, the plain
+   version's and ``scaled_dot_product_attention``'s;
 7. the XOR kernel against its plain version, R = 2, 4, 8, byte-exact;
 8. ``Trainer`` as ``examples/quickstart.py`` drives it (BUDDY with async
    drain, IntervalPolicy(4), node 3 killed at step 6 of 8) with phi3 at
@@ -49,7 +52,28 @@ failed check:
 9. the phase-8 state checkpointed with NAM_XOR, node 3 killed and the
    state restored byte-identically; each XOR group's fragments stacked on
    the card and reduced through the XOR kernel equal the NAM parity the
-   SCR stored; the kernel timed at that shape.
+   SCR stored; the kernel timed at that shape;
+10. the WKV6 and SSD scan kernels (forward, and backward through
+   autograd) against their plain versions at rwkv6-3b's training shape
+   (B 4, T 512, 40 heads of 64) and zamba2-2.7b's (80 heads, P = N = 64)
+   and a ragged T 200, zero and non-zero initial state, float32 and
+   bfloat16, the float32 gradients also held against a float64
+   computation, a repeated run bit-identical; then forward and backward
+   times at the training shapes beside their bounds and the plain
+   versions';
+11. rwkv6-3b: a full-depth (32 layers) bf16 prefill through
+   ``make_prefill_step`` (one WKV6 launch per layer, no plain scan), the
+   float32 forward through the kernels against the plain path, then
+   ``Trainer`` at published width cut to 2 layers (PARTNER copies,
+   IntervalPolicy(4), node 3 killed at step 6 of 8): one recovery, a
+   falling loss, 2 forward and 1 backward WKV6 launches per layer per step
+   and no plain scan, and a final-state SHA-256 equal to an uninterrupted
+   run's;
+12. zamba2-2.7b, the same: full depth 54 layers (one SSD launch per Mamba
+   layer, one flash launch per shared-block group), training cut to 6
+   layers (one group): 2 forward and 1 backward SSD launches per Mamba
+   layer per step, 1 flash forward and 3 flash backward launches per
+   group per step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -58,7 +82,9 @@ repository beside it, the script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import gc
 import hashlib
 import itertools
@@ -85,18 +111,22 @@ from repro_torch.cluster.topology import NodeState, VirtualCluster  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import parity  # noqa: E402
 from repro_torch.core.scr import SCRManager, Strategy, _nam_region  # noqa: E402
+from repro_torch.convert import state_to_numpy  # noqa: E402
 from repro_torch.data.pipeline import TokenPipeline  # noqa: E402
 from repro_torch.io.serialization import serialize_state_stream  # noqa: E402
 from repro_torch.kernels import _build, ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import xor_parity as xp  # noqa: E402
 from repro_torch.memory.stack import TierStack  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves  # noqa: E402
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
-from repro_torch.train.step import init_train_state  # noqa: E402
+from repro_torch.train.step import (init_train_state, make_prefill_step,  # noqa: E402
+                                    make_train_step)
 from repro_torch.train.trainer import FailureEvent, Trainer  # noqa: E402
 
 SEED = 0
@@ -119,6 +149,30 @@ FLASH_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 # exceed the larger of the plain version's distance and FLASH_F64_ATOL
 FLASH_BWD_F32_TOL = dict(atol=2e-5, rtol=1e-5)
 FLASH_F64_ATOL = 1e-5
+# the scans at float32: the reference's own tolerance for its chunked and
+# Pallas scans (tests/test_kernels.py:107-125, 175-193); bf16 as the flash
+SCAN_F32_TOL = dict(atol=5e-5, rtol=1e-4)
+SCAN_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
+# scan gradients sum over up to T tokens and P x N (D x D) state cells, so
+# they are held relative to each gradient's largest magnitude: within
+# SCAN_BWD_F32_REL of the plain version's, and nearer float64 than the
+# plain version or SCAN_F64_REL
+SCAN_BWD_F32_REL = 1e-4
+SCAN_F64_REL = 1e-5
+SCAN_CASES = {   # the first of each kind is its training shape
+    "wkv6": {"rwkv6-3b B=4 T=512 (H=40, D=64)": (4, 512, 40, 64),
+             "rwkv6-3b T=200": (2, 200, 40, 64)},
+    "ssd": {"zamba2-2.7b B=4 T=512 (H=80, P=N=64)": (4, 512, 80, 64, 64),
+            "zamba2-2.7b T=200": (2, 200, 80, 64, 64)},
+}
+# phases 11-12: the recurrent families at published width; training cuts
+# the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
+FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6}, batch=4, seq=512,
+              steps=8, ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3,
+              warmup=4)
+# kernel path vs plain path of a whole float32 forward: 1.6e-5 measured on
+# an H100 (rwkv6-3b, 2 layers)
+FAMILY_F32_TOL = dict(atol=1e-4, rtol=1e-4)
 # the training run: phi3-mini-3.8b at published width, depth cut to 2
 TRAIN = dict(arch="phi3-mini-3.8b", layers=2, batch=4, seq=512, steps=8,
              ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3, warmup=4)
@@ -141,6 +195,21 @@ def check_close(name, got, want, atol, rtol):
     if not torch.isfinite(got).all() or over > 0:
         raise AssertionError(f"{name}: kernel disagrees with its plain version "
                              f"(max abs err {worst:.3e})")
+    return worst
+
+
+def check_scaled(name, got, want, rel):
+    """Raise unless max |got - want| <= rel * max |want|; return that
+    relative distance."""
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    worst = (got - want).abs().max().item() / max(scale, 1e-30)
+    say(f"  {name}: max_abs_err / max|want| = {worst:.3e} (max|want| "
+        f"{scale:.3e}, limit {rel})")
+    if not (torch.isfinite(got).all() and torch.isfinite(want).all()
+            and worst <= rel):
+        raise AssertionError(f"{name}: kernel disagrees with its plain version "
+                             f"(relative error {worst:.3e})")
     return worst
 
 
@@ -528,6 +597,9 @@ def phase6() -> dict:
         "phi3 Tq=100 < Tk=300": (2, 100, 300, 32, 32, 96),
         "starcoder2-7b T=512": (1, 512, 512, 36, 4, 128),
         "starcoder2-7b T=200": (2, 200, 200, 36, 4, 128),
+        # zamba2's shared block: D 80 runs the kernels' col < d branch
+        "zamba2-2.7b B=4 T=512 (Hq=Hkv=32, D=80)": (4, 512, 512, 32, 32, 80),
+        "zamba2-2.7b T=200": (2, 200, 200, 32, 32, 80),
     }
     errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
     for label, shape in shapes.items():
@@ -569,54 +641,258 @@ def phase6() -> dict:
         else:
             raise AssertionError(f"the flash kernel path accepted {what}")
 
-    # times at the training shape, bf16
+    # times at the two training shapes, bf16: phi3's (phase 8) and zamba2's
+    # shared block (phase 12, D 80); the first fills the entry's keys
     F = torch.nn.functional
-    b, t, h, d = TRAIN["batch"], TRAIN["seq"], 32, 96
-    q, k, v, dout = flash_inputs(b, t, t, h, h, d, bf16)
-    out, lse = fa.flash_attention_fwd(q, k, v)
-    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
-    plain_out = ref.flash_attention(qr, kr, vr)
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dout_t = dout.transpose(1, 2)
-    timed = {
-        "flash_attention_fwd": (
-            lambda: fa.flash_attention_fwd(q, k, v),
-            lambda: ref.flash_attention(q, k, v),
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True),
-            flash_bound_ms(b, t, t, h, h, d, 2, backward=False)),
-        "flash_attention_bwd": (
-            lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
-            lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout,
-                                        retain_graph=True),
-            lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
-                                        retain_graph=True),
-            flash_bound_ms(b, t, t, h, h, d, 2, backward=True)),
-    }
+    b, t = TRAIN["batch"], TRAIN["seq"]
     rec = {}
-    for name, (kern, plain, lib, (bound, bound_by)) in timed.items():
-        ms = time_ms(kern, iters=50)
-        plain_ms = time_ms(plain, iters=10, warmup=2)
-        library_ms = time_ms(lib, iters=50)
-        rec[name] = {
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-            "replaces": "src/repro/kernels/flash_attention.py:123",
-            "launches": 0, "max_abs_err": errs[name], "ms": ms,
-            "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": bound_by, "library_ms": library_ms,
-            "shape": {"B": b, "T": t, "Hq": h, "Hkv": h, "D": d,
-                      "dtype": "bfloat16", "causal": True},
+    for label, h, d in (("phi3", 32, 96), ("zamba2-2.7b shared block", 32, 80)):
+        q, k, v, dout = flash_inputs(b, t, t, h, h, d, bf16)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        plain_out = ref.flash_attention(qr, kr, vr)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dout_t = dout.transpose(1, 2)
+        timed = {
+            "flash_attention_fwd": (
+                lambda: fa.flash_attention_fwd(q, k, v),
+                lambda: ref.flash_attention(q, k, v),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                flash_bound_ms(b, t, t, h, h, d, 2, backward=False)),
+            "flash_attention_bwd": (
+                lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout),
+                lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout,
+                                            retain_graph=True),
+                lambda: torch.autograd.grad(sdpa_out, (qt, kt, vt), dout_t,
+                                            retain_graph=True),
+                flash_bound_ms(b, t, t, h, h, d, 2, backward=True)),
         }
-        say(f"  {name} at the training shape: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
-            f"ms ({bound_by})")
+        for name, (kern, plain, lib, (bound, bound_by)) in timed.items():
+            ms = time_ms(kern, iters=50)
+            plain_ms = time_ms(plain, iters=10, warmup=2)
+            library_ms = time_ms(lib, iters=50)
+            times = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "library_ms": library_ms,
+                     "shape": {"B": b, "T": t, "Hq": h, "Hkv": h, "D": d,
+                               "dtype": "bfloat16", "causal": True}}
+            if name not in rec:
+                rec[name] = {
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                    "replaces": "src/repro/kernels/flash_attention.py:123",
+                    "launches": 0, "max_abs_err": errs[name], **times}
+            else:
+                rec[name]["at_head_dim_80"] = times
+            say(f"  {name} at {label}'s training shape (D {d}): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
+                f"ms, bound {bound:.4f} ms ({bound_by})")
+        del q, k, v, dout, out, lse, qr, kr, vr, plain_out, qt, kt, vt
+        del sdpa_out, dout_t, timed
+        release()
     rec["flash_attention_bwd"]["note"] = (
         "the reference has no backward kernel: JAX differentiates "
         "layers.flash_attention, whose TPU kernel the forward replaces; "
         "one backward pass is 3 launches (delta, dQ, dK/dV), each counted, "
         "and ms is the time of one pass")
+    return rec
+
+
+# ---------------------------------------------------------------------- #
+# phase 10: the WKV6 and SSD scan kernels against their plain versions
+# ---------------------------------------------------------------------- #
+
+
+def scan_inputs(kind, shape, dtype, nonzero_state, seed=SEED):
+    """Inputs of one scan as the models feed it, made on the card from a
+    seed: for ``"wkv6"`` (r, k, v, w, u, state) with w = exp(-exp(.))
+    under the model's clip (so w spans e^-e .. 1), for ``"ssd"`` (x, dt,
+    A, Bm, Cm, state) with dt a softplus and A = -exp(U[0, 1)); r, k, v,
+    u (x, Bm, Cm) in ``dtype``, the rest float32; then dy."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+
+    def mk(*dims, scale=1.0):
+        return torch.randn(*dims, generator=gen, device=DEVICE) * scale
+
+    if kind == "wkv6":
+        b, t, h, d = shape
+        ins = (mk(b, t, h, d, scale=0.5).to(dtype),
+               mk(b, t, h, d, scale=0.5).to(dtype), mk(b, t, h, d).to(dtype),
+               torch.exp(-torch.exp(mk(b, t, h, d, scale=2.0).clamp(-8.0, 1.0))),
+               mk(h, d, scale=0.1).to(dtype),
+               mk(b, h, d, d, scale=0.5) if nonzero_state else None)
+        return ins, mk(b, t, h, d).to(dtype)
+    b, t, h, p, n = shape
+    ins = (mk(b, t, h, p).to(dtype),
+           torch.nn.functional.softplus(mk(b, t, h)),
+           -torch.exp(torch.rand(h, generator=gen, device=DEVICE)),
+           mk(b, t, n, scale=0.5).to(dtype), mk(b, t, n, scale=0.5).to(dtype),
+           mk(b, h, p, n, scale=0.5) if nonzero_state else None)
+    return ins, mk(b, t, h, p).to(dtype)
+
+
+def scan_call(kind, ins, use_kernel):
+    fn = ops.wkv6 if kind == "wkv6" else ops.mamba2_ssd
+    return fn(*ins, use_kernel=use_kernel)
+
+
+def scan_grads(kind, ins, dy, use_kernel):
+    """(y, final state, grads of every input that is given) through
+    ``ops`` and autograd."""
+    leaves = [x.detach().requires_grad_() if x is not None else None
+              for x in ins]
+    y, s = scan_call(kind, leaves, use_kernel)
+    wrt = [x for x in leaves if x is not None]
+    return (y.detach(), s.detach()) + torch.autograd.grad(y, wrt, dy)
+
+
+def scan_bound_ms(kind, shape, elem, backward) -> tuple:
+    """Least time for one call as the training step makes it (no initial
+    state): every input read once and every output written once, over HBM
+    bandwidth -- the forward writes y and the final state, the backward
+    reads the inputs and dy and writes their gradients (no state-shaped
+    tensor: there is no initial state to differentiate, and the saved
+    chunk states are the kernel's choice, not the function's); against the
+    multiply-adds of the recurrence (5 flops per state element and token
+    forward, 14 backward: the states, G, and the four gradient
+    contractions) at the inputs' peak rate."""
+    if kind == "wkv6":
+        b, t, h, d = shape
+        act = b * t * h * d
+        state = b * h * d * d * 4
+        fwd_bytes = 3 * act * elem + act * 4 + h * d * 4 + act * elem + state
+        bwd_bytes = (3 * act * elem + act * 4 + h * d * 4 + act * elem
+                     + 3 * act * elem + act * 4 + h * d * 4)
+        cells = b * t * h * d * d
+    else:
+        b, t, h, p, n = shape
+        act = b * t * h * p
+        bc = 2 * b * t * n * elem
+        state = b * h * p * n * 4
+        fwd_bytes = act * elem + b * t * h * 4 + h * 4 + bc + act * elem + state
+        bwd_bytes = (act * elem + b * t * h * 4 + h * 4 + bc + act * elem
+                     + act * elem + b * t * h * 4 + h * 4 + bc)
+        cells = b * t * h * p * n
+    nbytes = bwd_bytes if backward else fwd_bytes
+    flops = (14 if backward else 5) * cells
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS["bfloat16" if elem == 2 else "float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase10() -> dict:
+    say("== phase 10: the WKV6 and SSD scan kernels, forward and backward, "
+        "against their plain versions")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = SCAN_CASES
+    names = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
+             "ssd": ("dx", "ddt", "dA", "dB", "dC", "dstate")}
+    errs = {}
+    for kind, shapes in cases.items():
+        fwd_err = bwd_err = 0.0
+        for label, shape in shapes.items():
+            for dtype, nonzero in itertools.product((f32, bf16), (False, True)):
+                tag = (f"{label} {str(dtype)[6:]} "
+                       f"{'non-zero' if nonzero else 'zero'} initial state")
+                ins, dy = scan_inputs(kind, shape, dtype, nonzero)
+                got = scan_grads(kind, ins, dy, None)
+                want = scan_grads(kind, ins, dy, False)
+                tol = SCAN_F32_TOL if dtype == f32 else SCAN_BF16_TOL
+                fwd_err = max(fwd_err, check_close(f"{kind} y {tag}", got[0],
+                                                   want[0], **tol))
+                fwd_err = max(fwd_err, check_close(
+                    f"{kind} final state {tag}", got[1], want[1], **tol))
+                rel = SCAN_BWD_F32_REL if dtype == f32 else SCAN_BF16_TOL["rtol"]
+                gnames = names[kind][:len(got) - 2]
+                for name, g, w in zip(gnames, got[2:], want[2:]):
+                    bwd_err = max(bwd_err, check_scaled(
+                        f"{kind} {name} {tag}", g, w, rel))
+                again = scan_grads(kind, ins, dy, None)
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                    raise AssertionError(f"{kind} {tag}: a repeated run gave "
+                                         "other bits")
+                if dtype == f32:
+                    exact = scan_grads(kind, [None if x is None else x.double()
+                                              for x in ins], dy.double(), False)
+                    for name, g, w, e in zip(gnames, got[2:], want[2:],
+                                             exact[2:]):
+                        scale = e.abs().max().item()
+                        kd = (g.double() - e).abs().max().item() / scale
+                        pd = (w.double() - e).abs().max().item() / scale
+                        say(f"    {name} distance to float64 (relative to "
+                            f"max |{name}| {scale:.3e}): kernel {kd:.3e}, plain "
+                            f"{pd:.3e} (limit max(plain, {SCAN_F64_REL}))")
+                        if not kd <= max(pd, SCAN_F64_REL):   # NaN fails
+                            raise AssertionError(f"{kind} {name} {tag}: the "
+                                                 f"kernel lies {kd:.3e} from "
+                                                 "float64")
+                    del exact
+                del got, want, again
+        errs[kind] = (fwd_err, bwd_err)
+        say(f"  {kind}: a repeated forward and backward gave the same bits "
+            "at every case")
+    torch.cuda.synchronize()
+    release()
+
+    # times at the training shapes, bf16, as the training step calls them
+    rec = {}
+    for kind, shapes in cases.items():
+        label, shape = next(iter(shapes.items()))
+        ins, dy = scan_inputs(kind, shape, bf16, False)
+        if kind == "wkv6":
+            r, k, v, w, u, _ = ins
+            uf = u.float()
+            fwd = lambda: wkv.wkv6_fwd(r, k, v, w, uf, save=True)
+            _, _, ckpt = fwd()
+            bwd = lambda: wkv.wkv6_bwd(r, k, v, w, uf, ckpt, dy)
+            names_ = ("wkv6_fwd", "wkv6_bwd")
+            src, replaces = ("src/repro_torch/kernels/csrc/wkv6.cu",
+                             "src/repro/kernels/rwkv6_scan.py:110")
+        else:
+            x, dt, A, Bm, Cm, _ = ins
+            fwd = lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, save=True)
+            _, _, ckpt = fwd()
+            bwd = lambda: ssd.ssd_bwd(x, dt, A, Bm, Cm, ckpt, dy)
+            names_ = ("mamba2_ssd_fwd", "mamba2_ssd_bwd")
+            src, replaces = ("src/repro_torch/kernels/csrc/mamba2_ssd.cu",
+                             "src/repro/kernels/mamba2_ssd.py:101")
+        leaves = [x.detach().requires_grad_() if x is not None else None
+                  for x in ins]
+        plain_y, _ = scan_call(kind, leaves, False)
+        wrt = [x for x in leaves if x is not None]
+        plain_fwd = lambda: scan_call(kind, ins, False)
+        plain_bwd = lambda: torch.autograd.grad(plain_y, wrt, dy,
+                                                retain_graph=True)
+        for name, kern, plain, backward in (
+                (names_[0], fwd, plain_fwd, False),
+                (names_[1], bwd, plain_bwd, True)):
+            with torch.no_grad() if not backward else contextlib.nullcontext():
+                ms = time_ms(kern, iters=20, warmup=3)
+                plain_ms = time_ms(plain, iters=5, warmup=1)
+            bound, bound_by = scan_bound_ms(kind, shape, 2, backward)
+            rec[name] = {
+                "name": name, "route": "cuda", "source": src,
+                "replaces": replaces, "launches": 0,
+                "max_abs_err": errs[kind][1 if backward else 0], "ms": ms,
+                "kernel_ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None,
+                "shape": dict(zip(("B", "T", "H", "D") if kind == "wkv6" else
+                                  ("B", "T", "H", "P", "N"), shape),
+                              dtype="bfloat16"),
+            }
+            say(f"  {name} at the training shape ({label}): kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+                f"({bound_by}); no single PyTorch call computes it")
+        rec[names_[1]]["note"] = (
+            "the reference has no backward kernel: JAX differentiates the "
+            "chunked jnp version, whose TPU kernel the forward replaces; "
+            "max_abs_err of a backward is relative to each gradient's largest "
+            "magnitude")
+        del ins, dy, ckpt, plain_y, leaves, wrt
+        release()
     return rec
 
 
@@ -849,6 +1125,247 @@ def phase9(state) -> dict:
             "shape": {"R": r, "M": m, "lanes": 128, "dtype": "int32"}}
 
 
+# ---------------------------------------------------------------------- #
+# phases 11-12: train the recurrent families through the scan kernels
+# ---------------------------------------------------------------------- #
+
+
+@contextlib.contextmanager
+def counting_calls(targets):
+    """Count the calls of module functions the main path must not reach
+    (the plain versions of its kernels) while in effect: yields the
+    counts by name."""
+    calls = {name: 0 for _, name in targets}
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+    for mod, name, fn in saved:
+        def wrapper(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, wrapper)
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Every call of the path's kernels goes to the plain version instead
+    (for the float32 kernel-path vs plain-path comparison)."""
+    saved = {name: getattr(ops, name)
+             for name in ("wkv6", "mamba2_ssd", "flash_attention")}
+    for name, fn in saved.items():
+        setattr(ops, name, functools.partial(fn, use_kernel=False))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ops, name, fn)
+
+
+PLAIN_SCANS = [(ops, "wkv6_chunked"), (ops, "mamba2_chunked"),
+               (ref, "flash_attention")]
+
+
+def family_launches():
+    return {"wkv6_fwd": wkv.wkv6_fwd.launches,
+            "wkv6_bwd": wkv.wkv6_bwd.launches,
+            "mamba2_ssd_fwd": ssd.ssd_fwd.launches,
+            "mamba2_ssd_bwd": ssd.ssd_bwd.launches,
+            "flash_attention_fwd": fa.flash_attention_fwd.launches,
+            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+
+
+def reset_family_launches() -> None:
+    for fn in (wkv.wkv6_fwd, wkv.wkv6_bwd, ssd.ssd_fwd, ssd.ssd_bwd,
+               fa.flash_attention_fwd, fa.flash_attention_bwd):
+        fn.launches = 0
+
+
+def prefill_full_depth(arch: str, kernels: tuple) -> dict:
+    """The published config at full depth: one ``make_prefill_step`` on B
+    x T tokens, timed, with the kernels' launches counted."""
+    cfg = get_config(arch)
+    model = get_model(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, cfg, device=DEVICE)
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    prefill = make_prefill_step(cfg, model)
+    rng = np.random.default_rng(SEED)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FAMILY["batch"], FAMILY["seq"]), dtype=np.int32)
+        ).to(DEVICE)
+    nxt = prefill(params, {"tokens": tokens})      # warm-up
+    torch.cuda.synchronize()
+    reset_family_launches()
+    with counting_calls(PLAIN_SCANS) as plain:
+        t0 = time.perf_counter()
+        nxt = prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launches = family_launches()
+    peak = torch.cuda.max_memory_allocated()
+    ok = (tuple(nxt.shape) == (FAMILY["batch"],)
+          and bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()))
+    say(f"  full depth: {cfg.n_layers} layers, {n_params} parameters, B "
+        f"{FAMILY['batch']} x T {FAMILY['seq']} bf16 prefill {ms:.1f} ms, "
+        f"peak {peak / 2**30:.3f} GiB; launches "
+        f"{ {k: launches[k] for k in kernels} }; plain calls {plain}; "
+        f"next tokens {nxt.tolist()}")
+    want = {kernels[0]: cfg.n_layers}
+    if cfg.attn_every:   # the shared block, once per group
+        want["flash_attention_fwd"] = cfg.n_layers // cfg.attn_every
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{arch} prefill: {launches[name]} {name} "
+                                 f"launches, want {n}")
+    if any(plain.values()) or not ok:
+        raise AssertionError(f"{arch} prefill: plain calls {plain}, "
+                             f"next tokens {nxt.tolist()}")
+    del params
+    release()
+    return {"arch": arch, "layers": cfg.n_layers, "parameters": n_params,
+            "ms": ms, "peak_bytes": peak}
+
+
+def check_kernel_path_f32(cfg, model) -> float:
+    """At float32 compute, the forward's logits through the kernels and
+    through their plain versions agree (B 1, ragged T 200)."""
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = model.init(SEED + 1, cfg32, device=DEVICE)
+    rng = np.random.default_rng(SEED + 1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 200),
+                                           dtype=np.int32)).to(DEVICE)
+    with torch.no_grad():
+        got, _ = model.forward(params, {"tokens": tokens}, cfg32, remat=False)
+        with plain_kernels():
+            want, _ = model.forward(params, {"tokens": tokens}, cfg32,
+                                    remat=False)
+    err = check_close(f"{cfg.name} float32 logits, kernel path vs plain path",
+                      got, want, **FAMILY_F32_TOL)
+    del params, got, want
+    release()
+    return err
+
+
+def clean_sha(cfg, model) -> tuple:
+    """The uninterrupted run, no checkpoints: the trainer's steps in order
+    (same init, same batches) and the SHA-256 of its final state's bytes,
+    as a checkpoint's manifest computes it."""
+    state = init_train_state(SEED, cfg, model, device=DEVICE)
+    pipe = TokenPipeline(cfg.vocab_size, global_batch=FAMILY["batch"],
+                         seq_len=FAMILY["seq"], seed=SEED)
+    step = make_train_step(cfg, model, AdamWConfig(
+        lr=FAMILY["lr"], warmup_steps=FAMILY["warmup"]))
+    losses, walls = [], []
+    for _ in range(FAMILY["steps"]):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in pipe.next_batch().items()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    manifest = serialize_state_stream(state_to_numpy(state)).manifest
+    del state
+    release()
+    return manifest, losses, walls
+
+
+def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
+    """Full-depth prefill, then training at published width with the
+    depth cut, one node killed, recovered, and the final state's SHA-256
+    against the uninterrupted run's."""
+    layers = FAMILY["layers"][arch]
+    say(f"== phase {phase}: {arch} through the {kernels[0].rsplit('_', 1)[0]} "
+        "kernels: full-depth prefill, then training with a node kill")
+    prefill = prefill_full_depth(arch, kernels)
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+    model = get_model(cfg)
+    f32_err = check_kernel_path_f32(cfg, model)
+    n_params = sum(p.numel() for p in tree_leaves(model.param_shapes(cfg)))
+    torch.use_deterministic_algorithms(True)
+    tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{arch}_"))
+    try:
+        say(f"  training: published width, depth cut {get_config(arch).n_layers}"
+            f" -> {layers} layers, {n_params} parameters ({3 * 4 * n_params} "
+            f"bytes of params + m + v); B {FAMILY['batch']} x T "
+            f"{FAMILY['seq']}, {FAMILY['steps']} steps, PARTNER copies "
+            f"without a global flush, IntervalPolicy({FAMILY['ckpt_every']}), "
+            f"node {FAMILY['fail_rank']} killed at step {FAMILY['fail_step']}; "
+            f"free disk {shutil.disk_usage(tmp).free} bytes")
+        clean, clean_losses, clean_walls = clean_sha(cfg, model)
+        walls = sorted(clean_walls[1:])
+        say(f"  uninterrupted (no checkpoints): loss {clean_losses[0]:.4f} -> "
+            f"{clean_losses[-1]:.4f}; step median {1e3 * walls[len(walls) // 2]:.1f}"
+            f" ms (first {1e3 * clean_walls[0]:.1f} ms); final state sha256 "
+            f"{clean['sha256'][:16]}.. over {clean['total_bytes']} bytes")
+
+        # the main path: counts from zero, plain versions wrapped to count
+        cluster = VirtualCluster(n_cluster=4, n_booster=4, root=tmp / "faulty")
+        scr = SCRManager(cluster, TierStack.for_cluster(cluster),
+                         strategy=Strategy.PARTNER, procs_per_node=2,
+                         flush_every=0)
+        pipeline = TokenPipeline(cfg.vocab_size, global_batch=FAMILY["batch"],
+                                 seq_len=FAMILY["seq"], seed=SEED)
+        torch.cuda.reset_peak_memory_stats()
+        reset_family_launches()
+        with counting_calls(PLAIN_SCANS) as plain, \
+                ResilienceSession(scr, policy=IntervalPolicy(
+                    FAMILY["ckpt_every"])) as session:
+            trainer = Trainer(cfg, model, pipeline, session,
+                              opt_cfg=AdamWConfig(lr=FAMILY["lr"],
+                                                  warmup_steps=FAMILY["warmup"]),
+                              failure_schedule=[FailureEvent(
+                                  step=FAMILY["fail_step"],
+                                  rank=FAMILY["fail_rank"])],
+                              seed=SEED, device=DEVICE)
+            report = trainer.run(total_steps=FAMILY["steps"])
+            manifest = scr._descriptor(FAMILY["steps"])["manifest"]
+            on_disk = dir_bytes(tmp)
+        launches = family_launches()
+        peak = torch.cuda.max_memory_allocated()
+        cluster.teardown()
+        report_train("node kill", report, manifest, on_disk)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    steps = report.steps_run
+    groups = layers // max(1, cfg.attn_every) if cfg.attn_every else 0
+    want = {kernels[0]: 2 * layers * steps, kernels[1]: layers * steps}
+    if groups:
+        want["flash_attention_fwd"] = groups * steps
+        want["flash_attention_bwd"] = 3 * groups * steps
+    say(f"  node kill: launches {launches} over {steps} steps x {layers} "
+        f"layers; plain calls {plain}; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+    if report.recoveries != 1 or report.restarts_from_step != [FAMILY["ckpt_every"]]:
+        raise AssertionError(f"want one recovery from step {FAMILY['ckpt_every']}"
+                             f", got {report.recoveries} from "
+                             f"{report.restarts_from_step}")
+    if not report.losses[-1] < report.losses[0]:
+        raise AssertionError("the loss did not fall")
+    for name, n in want.items():
+        if launches[name] != n:
+            raise AssertionError(f"{launches[name]} {name} launches, want {n}")
+    if any(plain.values()):
+        raise AssertionError(f"the training path called plain versions: "
+                             f"{plain}")
+    if (manifest["sha256"], manifest["total_bytes"]) != (
+            clean["sha256"], clean["total_bytes"]):
+        raise AssertionError("the recovered run's final state differs from "
+                             "the uninterrupted run's")
+    say(f"  final state byte-identical to the uninterrupted run: sha256 "
+        f"{manifest['sha256'][:16]}.. over {manifest['total_bytes']} bytes")
+    main_path = {"arch": arch, "layers": layers,
+                 "layers_published": get_config(arch).n_layers,
+                 "batch": FAMILY["batch"], "seq": FAMILY["seq"],
+                 "steps_run": steps}
+    release()
+    return {"launches": {k: launches[k] for k in want}, "main_path": main_path,
+            "prefill": prefill, "f32_logits_err": f32_err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -928,6 +1445,20 @@ def main() -> int:
     kernels["xor_reduce"] = phase9(state)
     del state
     release()
+
+    kernels.update(phase10())
+    for phase, arch, names in ((11, "rwkv6-3b", ("wkv6_fwd", "wkv6_bwd")),
+                               (12, "zamba2-2.7b", ("mamba2_ssd_fwd",
+                                                    "mamba2_ssd_bwd"))):
+        got = phase_family(phase, arch, names)
+        for name in names:
+            kernels[name]["launches"] = got["launches"][name]
+            kernels[name]["main_path"] = got["main_path"]
+        kernels[names[0]]["prefill_full_depth"] = got["prefill"]
+        kernels[names[0]]["f32_logits_err"] = got["f32_logits_err"]
+        for name in ("flash_attention_fwd", "flash_attention_bwd"):
+            if name in got["launches"]:   # zamba2's shared block
+                kernels[name]["launches_" + arch] = got["launches"][name]
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

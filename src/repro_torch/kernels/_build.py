@@ -40,6 +40,14 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "xor_parity": {
         "repro_xor_reduce": [_P, _P, _I, _L, _I, _P],
     },
+    "wkv6": {
+        "repro_wkv6_fwd": [_I] + [_P] * 9 + [_I] * 4 + [_P],
+        "repro_wkv6_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+    },
+    "mamba2_ssd": {
+        "repro_ssd_fwd": [_I] + [_P] * 9 + [_I] * 5 + [_P],
+        "repro_ssd_bwd": [_I] + [_P] * 13 + [_I] * 5 + [_P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

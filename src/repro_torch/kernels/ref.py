@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels: paged attention, flash
-attention and the XOR parity reduce.
+attention, the XOR parity reduce, and the sequential WKV6 and Mamba2-SSD
+recurrences (the oracles of the chunked scans in :mod:`.ops`).
 
 Each function is the obvious, untiled computation its kernel performs,
 written as the reference's jnp oracles are (``repro/kernels/ref.py`` and
@@ -207,3 +208,53 @@ def xor_reduce(stacked: torch.Tensor) -> torch.Tensor:
     for i in range(1, stacked.shape[0]):
         out ^= stacked[i]
     return out
+
+
+def rwkv6_ref(
+    r: torch.Tensor,   # (B, T, H, D) receptance
+    k: torch.Tensor,   # (B, T, H, D)
+    v: torch.Tensor,   # (B, T, H, D)
+    w: torch.Tensor,   # (B, T, H, D) per-step decay in (0, 1)
+    u: torch.Tensor,   # (H, D) bonus of the current token
+    state: Optional[torch.Tensor] = None,   # (B, H, D, D) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential WKV6: ``S_t = diag(w_t) S_{t-1} + k_t v_t^T``,
+    ``o_t = r_t (S_{t-1} + diag(u) k_t v_t^T)``; f32 state, output in
+    r's dtype."""
+    b, t, h, d = r.shape
+    f32 = torch.float32
+    s = (torch.zeros((b, h, d, d), dtype=f32, device=r.device)
+         if state is None else state)
+    uf = u.to(f32)
+    outs = []
+    for i in range(t):
+        rt, kt, vt, wt = (x[:, i].to(f32) for x in (r, k, v, w))
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhd,bhde->bhe", rt, s + uf[..., :, None] * kv))
+        s = wt[..., :, None] * s + kv
+    return torch.stack(outs, 1).to(r.dtype), s
+
+
+def mamba2_ref(
+    x: torch.Tensor,    # (B, T, H, P) input heads
+    dt: torch.Tensor,   # (B, T, H) softplus'd timestep
+    A: torch.Tensor,    # (H,) negative decay rate
+    Bm: torch.Tensor,   # (B, T, N) input -> state, shared by the heads
+    Cm: torch.Tensor,   # (B, T, N) state -> output
+    state: Optional[torch.Tensor] = None,   # (B, H, P, N) f32
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Naive sequential Mamba2 SSD: ``S_t = exp(A dt_t) S_{t-1} + dt_t x_t
+    B_t^T``, ``y_t = S_t C_t``; f32 state, output in x's dtype."""
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    f32 = torch.float32
+    s = (torch.zeros((b, h, p, n), dtype=f32, device=x.device)
+         if state is None else state)
+    outs = []
+    for i in range(t):
+        xt, dtt, bt, ct = (y[:, i].to(f32) for y in (x, dt, Bm, Cm))
+        decay = torch.exp(A[None, :] * dtt)
+        upd = (dtt[..., None, None] * xt[..., :, None]) * bt[:, None, None, :]
+        s = decay[..., None, None] * s + upd
+        outs.append(torch.einsum("bhpn,bn->bhp", s, ct))
+    return torch.stack(outs, 1).to(x.dtype), s

@@ -1,4 +1,4 @@
-"""Model zoo, PyTorch port: the dense family's decode path so far.
+"""Model zoo, PyTorch port: the dense, rwkv6 and zamba2 families.
 
 Every family module exposes the reference's interface:
 

@@ -164,6 +164,20 @@ def stacked(table: Dict[str, Any], n: int) -> Dict[str, Any]:
     return out
 
 
+def index_tree(tree: Dict[str, Any], *idx) -> Dict[str, Any]:
+    """The slice ``[idx]`` of every leaf of a stacked parameter tree (one
+    layer of ``(L, ...)`` leaves, one group's layer of ``(G, L, ...)``)."""
+    return {k: index_tree(v, *idx) if isinstance(v, dict) else v[idx]
+            for k, v in tree.items()}
+
+
+def cast_tree(tree: Dict[str, Any], dtype: torch.dtype) -> Dict[str, Any]:
+    """Every leaf of a parameter tree cast to ``dtype`` (the reference's
+    ``tree_map(lambda a: a.astype(cd), ...)``)."""
+    return {k: cast_tree(v, dtype) if isinstance(v, dict) else v.to(dtype)
+            for k, v in tree.items()}
+
+
 def act_fn(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
     if name in ("swiglu",):
         return F.silu

@@ -1,8 +1,8 @@
 """Family dispatch: ``get_model(cfg)`` returns a :class:`ModelApi`.
 
-Counterpart of ``repro/models/registry.py``.  This slice ports the
-``dense`` family; every other family raises, naming the ROADMAP.md slice
-that ports it.
+Counterpart of ``repro/models/registry.py``.  The port has the
+``dense``, ``rwkv`` and ``hybrid`` families; every other family raises,
+naming the ROADMAP.md slice that ports it.
 """
 
 from __future__ import annotations
@@ -36,20 +36,22 @@ _WAITS = {
     "moe": "MLA, MoE and the other families",
     "encdec": "MLA, MoE and the other families",
     "vlm": "MLA, MoE and the other families",
-    "rwkv": "rwkv6 with the wkv6 kernel",
-    "hybrid": "zamba2 with the mamba2 kernel",
 }
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
-    if cfg.family != "dense":
-        if cfg.family in _WAITS:
-            raise NotImplementedError(
-                f"model family {cfg.family!r} waits for the "
-                f"'{_WAITS[cfg.family]}' slice of ROADMAP.md")
+    if cfg.family == "dense":
+        from repro_torch.models import transformer as m
+    elif cfg.family == "rwkv":
+        from repro_torch.models import rwkv6 as m
+    elif cfg.family == "hybrid":
+        from repro_torch.models import mamba2 as m
+    elif cfg.family in _WAITS:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} waits for the "
+            f"'{_WAITS[cfg.family]}' slice of ROADMAP.md")
+    else:
         raise ValueError(cfg.family)
-    from repro_torch.models import transformer as m
-
     return ModelApi(
         family=cfg.family,
         init=m.init,
@@ -60,6 +62,6 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         cache_axes=m.cache_axes,
         cache_table=m.cache_table,
         decode_step=m.decode_step,
-        paged_decode_step=m.paged_decode_step,
-        cast_params=m.cast_params,
+        paged_decode_step=getattr(m, "paged_decode_step", None),
+        cast_params=getattr(m, "cast_params", None),
     )

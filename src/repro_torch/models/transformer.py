@@ -245,7 +245,7 @@ def forward(
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _rope_tables(cfg, positions)
     for li in range(cfg.n_layers):
-        lp = _layer(params["layers"], li)
+        lp = L.index_tree(params["layers"], li)
         if remat and torch.is_grad_enabled():
             x = checkpoint(decoder_layer, lp, x, cfg, cos, sin,
                            use_reentrant=False)
@@ -303,12 +303,6 @@ def cache_axes(cfg: ArchConfig, batch: int = 1, max_len: int = 1):
     return L.axes_of(cache_table(cfg, batch, max_len))
 
 
-def _layer(stacked_tree, l: int):
-    """Layer ``l``'s slice of the layer-stacked parameter tree."""
-    return {k: _layer(v, l) if isinstance(v, dict) else v[l]
-            for k, v in stacked_tree.items()}
-
-
 def _qkv(p, xin: torch.Tensor, cfg: ArchConfig, cos, sin):
     """Project one token per row to rotated q (B, Hq, D) and k, v
     (B, Hkv, D) in the compute dtype."""
@@ -356,7 +350,7 @@ def decode_step(
     cos, sin = _rope_tables(cfg, positions)
     lengths = torch.full((b,), int(pos) + 1, dtype=torch.int32, device=x.device)
     for li in range(cfg.n_layers):
-        lp = _layer(params["layers"], li)
+        lp = L.index_tree(params["layers"], li)
         xin = L.apply_norm(cfg, x[:, None], lp["ln1"])[:, 0]
         q, knew, vnew = _qkv(lp["attn"], xin, cfg, cos, sin)
         kc, vc = cache["k"][li], cache["v"][li]
@@ -406,7 +400,7 @@ def paged_decode_step(
     quantized = any(k.endswith(SCALE_SUFFIX) for k in pools)
     page_tokens = pools["k"].shape[2]
     s_pad = tables.shape[1] * page_tokens
-    layers = [_layer(params["layers"], li) for li in range(cfg.n_layers)]
+    layers = [L.index_tree(params["layers"], li) for li in range(cfg.n_layers)]
     kname, vname = "k" + SCALE_SUFFIX, "v" + SCALE_SUFFIX
 
     outs = []
