@@ -30,15 +30,19 @@ failed check:
    token agreement against phase 2 reported;
 6. the flash-attention kernels (forward, and backward through autograd)
    against their plain version: phi3 heads (32/32, D 96) at the training
-   shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128) and zamba2's
-   shared block (32/32, D 80: the kernels' col < d branch), a ragged
-   T 200 and Tq < Tk, float32 and bfloat16, with the float32 gradients
-   also held against a float64 computation; the kernel path refuses
-   prefix_len != 0 and
-   Tq > Tk; then forward and backward times at both training shapes
+   shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128), zamba2's
+   shared block (32/32, D 80) and a D 64 shape, a ragged T 200 and
+   Tq < Tk, float32 (CUDA-core route) and bfloat16 (tensor-core route:
+   wgmma fed by TMA), with the float32 gradients also held against a
+   float64 computation; the bf16 kernels' registers, spills and shared
+   memory (ptxas) and their HGMMA / UTMALDG counts (cuobjdump -sass), none
+   without HGMMA; two bf16 forward and backward launches at phi3's
+   training shape bit-identical; the kernel path refuses prefix_len != 0
+   and Tq > Tk; then forward and backward times at both training shapes
    (B 4, T 512, bf16: phi3 heads, and zamba2's shared block at D 80,
    recorded under ``at_head_dim_80``) beside their bounds, the plain
-   version's and ``scaled_dot_product_attention``'s;
+   version's and ``scaled_dot_product_attention``'s pinned to its flash
+   backend;
 7. the XOR kernel against its plain version, R = 2, 4, 8, byte-exact;
 8. ``Trainer`` as ``examples/quickstart.py`` drives it (BUDDY with async
    drain, IntervalPolicy(4), node 3 killed at step 6 of 8) with phi3 at
@@ -90,6 +94,7 @@ import hashlib
 import itertools
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -586,6 +591,70 @@ def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def cuobjdump() -> str:
+    """cuobjdump beside nvcc, or the copy in Triton's package."""
+    path = Path(_build.nvcc()).parent / "cuobjdump"
+    if not path.exists():
+        import triton
+        path = Path(triton.__file__).parent / "backends" / "nvidia" / "bin" / "cuobjdump"
+    if not path.exists():
+        raise RuntimeError("cuobjdump not found beside nvcc or in triton")
+    return str(path)
+
+
+def flash_sass() -> dict:
+    """Per bfloat16 flash kernel: registers and spills from the build's
+    ``-Xptxas -v`` report, its dynamic shared memory, and the count of
+    HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's SASS.
+    Raises if a kernel has no HGMMA: the route would not be on the tensor
+    cores."""
+    name = re.compile(r"hopper\d+(fwd_kernel|dq_kernel|dkdv_kernel)ILi(\d+)E")
+    log = _build.build_log.get("flash_attention")
+    if log is None:
+        raise AssertionError("no ptxas report: flash_attention.cu was not built "
+                             "by this run (delete build/repro_torch_kernels)")
+    report, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = name.search(line)
+            cur = f"{m[1]}<{m[2]}>" if m else None
+            if cur:
+                report[cur] = {"HGMMA": 0, "UTMALDG": 0}
+        elif cur and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            report[cur].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif cur and "registers" in line:
+            report[cur]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    sass = subprocess.run([cuobjdump(), "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, check=True).stdout
+    cur = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            m = name.search(line)
+            cur = f"{m[1]}<{m[2]}>" if m else None
+        elif cur:
+            report[cur]["HGMMA"] += " HGMMA." in line
+            report[cur]["UTMALDG"] += " UTMALDG." in line
+    lib = _build.library("flash_attention")
+    for key, entry in report.items():
+        kind, d = key[:-1].split("<")
+        entry["dynamic_smem_bytes"] = lib.repro_flash_bf16_smem(
+            ("fwd_kernel", "dq_kernel", "dkdv_kernel").index(kind), int(d))
+        say(f"  {key}: {entry['registers']} registers, spill stores "
+            f"{entry['spill_stores']} B / loads {entry['spill_loads']} B, "
+            f"{entry['dynamic_smem_bytes']} B dynamic shared memory; SASS "
+            f"HGMMA {entry['HGMMA']}, UTMALDG {entry['UTMALDG']}")
+    want = {f"{k}<{d}>" for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")
+            for d in fa.BF16_HEAD_DIMS}
+    if set(report) != want:
+        raise AssertionError(f"bf16 flash kernels in the build: {sorted(report)}, "
+                             f"want {sorted(want)}")
+    if not all(e["HGMMA"] for e in report.values()):
+        raise AssertionError("a bf16 flash kernel has no HGMMA instruction")
+    return report
+
+
 def phase6() -> dict:
     say("== phase 6: flash attention, forward and backward, against the "
         "plain version")
@@ -597,10 +666,15 @@ def phase6() -> dict:
         "phi3 Tq=100 < Tk=300": (2, 100, 300, 32, 32, 96),
         "starcoder2-7b T=512": (1, 512, 512, 36, 4, 128),
         "starcoder2-7b T=200": (2, 200, 200, 36, 4, 128),
-        # zamba2's shared block: D 80 runs the kernels' col < d branch
+        # zamba2's shared block: D 80 runs the float32 kernels' col < d
+        # branch and the bf16 kernels' zero-filled second 64-column box
         "zamba2-2.7b B=4 T=512 (Hq=Hkv=32, D=80)": (4, 512, 512, 32, 32, 80),
         "zamba2-2.7b T=200": (2, 200, 200, 32, 32, 80),
+        # whisper's head dim, the bf16 route's fourth instantiation
+        "D=64 T=200": (2, 200, 200, 8, 8, 64),
     }
+    say("  bf16 route (wgmma + TMA) build report:")
+    sass = flash_sass()
     errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
     for label, shape in shapes.items():
         for dtype in (f32, bf16):
@@ -641,9 +715,23 @@ def phase6() -> dict:
         else:
             raise AssertionError(f"the flash kernel path accepted {what}")
 
+    # the bf16 route repeats bit for bit at phi3's training shape
+    q, k, v, dout = flash_inputs(*shapes[next(iter(shapes))], bf16)
+    fwd = [fa.flash_attention_fwd(q, k, v) for _ in range(2)]
+    bwd = [fa.flash_attention_bwd(q, k, v, *fwd[0], dout) for _ in range(2)]
+    same = {n: torch.equal(a, b) for n, a, b in zip(
+        ("out", "lse", "dq", "dk", "dv"), fwd[0] + bwd[0], fwd[1] + bwd[1])}
+    say(f"  bf16 repeats bit-identical at phi3's training shape: {same}")
+    if not all(same.values()):
+        raise AssertionError(f"the bf16 flash kernels did not repeat: {same}")
+    del q, k, v, dout, fwd, bwd
+
     # times at the two training shapes, bf16: phi3's (phase 8) and zamba2's
-    # shared block (phase 12, D 80); the first fills the entry's keys
+    # shared block (phase 12, D 80); the first fills the entry's keys.  The
+    # yardstick is SDPA pinned to its flash backend, forward and backward.
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
+    flash_backend = functools.partial(sdpa_kernel, SDPBackend.FLASH_ATTENTION)
     b, t = TRAIN["batch"], TRAIN["seq"]
     rec = {}
     for label, h, d in (("phi3", 32, 96), ("zamba2-2.7b shared block", 32, 80)):
@@ -653,7 +741,8 @@ def phase6() -> dict:
         plain_out = ref.flash_attention(qr, kr, vr)
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
-        sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        with flash_backend():
+            sdpa_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
         dout_t = dout.transpose(1, 2)
         timed = {
             "flash_attention_fwd": (
@@ -673,10 +762,11 @@ def phase6() -> dict:
         for name, (kern, plain, lib, (bound, bound_by)) in timed.items():
             ms = time_ms(kern, iters=50)
             plain_ms = time_ms(plain, iters=10, warmup=2)
-            library_ms = time_ms(lib, iters=50)
+            with flash_backend():
+                library_ms = time_ms(lib, iters=50)
             times = {"ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
                      "bound_ms": bound, "bound_by": bound_by,
-                     "library_ms": library_ms,
+                     "library_ms": library_ms, "library": "sdpa/flash",
                      "shape": {"B": b, "T": t, "Hq": h, "Hkv": h, "D": d,
                                "dtype": "bfloat16", "causal": True}}
             if name not in rec:
@@ -684,12 +774,13 @@ def phase6() -> dict:
                     "name": name, "route": "cuda",
                     "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                     "replaces": "src/repro/kernels/flash_attention.py:123",
+                    "design": "wgmma+tma",
                     "launches": 0, "max_abs_err": errs[name], **times}
             else:
                 rec[name]["at_head_dim_80"] = times
             say(f"  {name} at {label}'s training shape (D {d}): kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} "
-                f"ms, bound {bound:.4f} ms ({bound_by})")
+                f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa/flash "
+                f"{library_ms:.5f} ms, bound {bound:.5f} ms ({bound_by})")
         del q, k, v, dout, out, lse, qr, kr, vr, plain_out, qt, kt, vt
         del sdpa_out, dout_t, timed
         release()
@@ -698,6 +789,11 @@ def phase6() -> dict:
         "layers.flash_attention, whose TPU kernel the forward replaces; "
         "one backward pass is 3 launches (delta, dQ, dK/dV), each counted, "
         "and ms is the time of one pass")
+    kinds = {"flash_attention_fwd": ("fwd_kernel",),
+             "flash_attention_bwd": ("dq_kernel", "dkdv_kernel")}
+    for name, names in kinds.items():
+        rec[name]["sass"] = {k: v for k, v in sass.items()
+                             if k.split("<")[0] in names}
     return rec
 
 

@@ -36,6 +36,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     "flash_attention": {
         "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_F, _I, _P],
         "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 6 + [_F, _I, _P],
+        "repro_flash_bf16_smem": [_I, _I],
     },
     "xor_parity": {
         "repro_xor_reduce": [_P, _P, _I, _L, _I, _P],

@@ -8,7 +8,10 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The Pallas kernel
 per-row log-sum-exp and a deterministic backward (no atomics) recomputed
 from q, k, v, o, dO and that log-sum-exp.  The reference needs no
 backward kernel because JAX differentiates its jnp version; the port's
-training loss runs through the forward kernel, so it has one.
+training loss runs through the forward kernel, so it has one.  The
+source has two routes, chosen by dtype: bfloat16 runs on the tensor
+cores (``wgmma`` fed by TMA, head dims :data:`BF16_HEAD_DIMS`), float32
+in exact f32 on the CUDA cores.
 
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
@@ -27,20 +30,16 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# one instantiation each of the bfloat16 (tensor-core) route; float32 takes
+# any multiple of 8 up to 256
+BF16_HEAD_DIMS = (64, 80, 96, 128)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    """Raise on anything the kernels do not take."""
-    for t in (q, k, v):
-        if t.device.type != "cuda":
-            raise ValueError("the flash-attention kernel takes CUDA tensors; "
-                             "kernels.ref holds the plain version")
-        if t.device != q.device:
-            raise ValueError(f"all tensors must be on {q.device}, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError("the kernel takes contiguous (B, T, H, D) tensors")
+    """Raise on anything the kernels do not take: dtypes and shapes first
+    (so a CPU tensor shows them too), then the device and the layout."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -56,9 +55,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     if d % 8 or d > 256:
         raise ValueError(f"head dim {d} must be a multiple of 8 and <= 256")
+    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
+        raise ValueError(f"head dim {d}: the bfloat16 kernels take head dims "
+                         f"{BF16_HEAD_DIMS}")
     if tq < 1 or tq > tk:
         raise ValueError(f"Tq={tq} > Tk={tk}: the kernel's causal offset "
                          "Tk - Tq must be >= 0 (so is the reference's)")
+    for t in (q, k, v):
+        if t.device.type != "cuda":
+            raise ValueError("the flash-attention kernel takes CUDA tensors; "
+                             "kernels.ref holds the plain version")
+        if t.device != q.device:
+            raise ValueError(f"all tensors must be on {q.device}, got {t.device}")
+        _check_layout(t)
+
+
+def _check_layout(t: torch.Tensor) -> None:
+    if not t.is_contiguous():
+        raise ValueError("the kernel takes contiguous (B, T, H, D) tensors")
+    # the bfloat16 kernels read through TMA, which wants 16-byte alignment
+    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+        raise ValueError("the bfloat16 kernel takes 16-byte-aligned tensors")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -102,10 +119,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or not t.is_contiguous() \
-                or t.device != q.device:
-            raise ValueError(f"{name} must be a contiguous {q.dtype} tensor of "
-                             f"q's shape {tuple(q.shape)}")
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"{name} must be a {q.dtype} tensor of q's shape "
+                             f"{tuple(q.shape)} on {q.device}")
+        _check_layout(t)
     if lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, hq, tq)}")

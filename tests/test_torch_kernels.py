@@ -317,19 +317,57 @@ def test_flash_kernel_path_refuses_what_it_has_no_semantics_for():
         txp.xor_reduce(torch.zeros((2, 1, 128), dtype=torch.int32))
 
 
+@pytest.mark.parametrize("d", [72, 256])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_bf16_route_refuses_other_head_dims_before_launch(which, d):
+    """The bfloat16 (tensor-core) kernels are instantiated for head dims 64,
+    80, 96 and 128; any other is refused with the set named, before the
+    device check, so a CPU tensor shows it."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x).to(torch.bfloat16)
+                     for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=15))
+    with pytest.raises(ValueError, match=r"head dims \(64, 80, 96, 128\)"):
+        if which == "fwd":
+            tfa.flash_attention_fwd(q, k, v)
+        else:
+            lse = torch.zeros((1, 2, 16), dtype=torch.float32)
+            tfa.flash_attention_bwd(q, k, v, q, lse, dout)
+
+
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_flash_bf16_route_takes_its_head_dims_on_cuda_only(d):
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, _ = (t(x).to(torch.bfloat16)
+                  for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=16))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k, v)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_and_xor_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     dev = torch.device("cuda")
-    for case in ((2, 200, 200, 32, 32, 96, True), (1, 100, 300, 36, 4, 128,
-                                                   True)):
-        q, k, v, dout = (t(x).to(dev) for x in flash_inputs(case, seed=14))
+    # float32 (CUDA-core route) and bfloat16 (tensor-core route), phi3's
+    # head dim 96, starcoder2's 128 over GQA with Tq < Tk, zamba2's 80
+    for case, dtype in (((2, 200, 200, 32, 32, 96, True), torch.float32),
+                        ((1, 100, 300, 36, 4, 128, True), torch.float32),
+                        ((2, 200, 200, 32, 32, 80, True), torch.float32),
+                        ((2, 200, 200, 32, 32, 96, True), torch.bfloat16),
+                        ((2, 200, 200, 32, 32, 80, True), torch.bfloat16)):
+        q, k, v, dout = (t(x).to(dev, dtype)
+                         for x in flash_inputs(case, seed=14))
         grads = []
         for use_kernel in (None, False):
             qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
             out = ops.flash_attention(qs, ks, vs, use_kernel=use_kernel)
             grads.append((out,) + torch.autograd.grad(out, (qs, ks, vs), dout))
+        if dtype == torch.bfloat16:   # chip_smoke.py's FLASH_BF16_TOL
+            for g, w in zip(grads[0], grads[1]):
+                torch.testing.assert_close(g, w, atol=3e-2, rtol=3e-2)
+            continue
         torch.testing.assert_close(grads[0][0], grads[1][0], **F32_TOL)
         # gradients sum up to g * T products: chip_smoke.py's FLASH_BWD_F32_TOL
         for g, w in zip(grads[0][1:], grads[1][1:]):
