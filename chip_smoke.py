@@ -12,12 +12,22 @@ failed check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, TF32 off, and the kernels' build time;
-1. every kernel against its plain PyTorch version on the card, at
-   phi3's attention shape (32 heads, head dim 96) and starcoder2-7b's
-   (36 over 4 kv heads, head dim 128), page 16, ragged lengths, shared
-   prefix pages and out-of-range table entries, float32 and bfloat16,
-   the multi-token fold and the int8 kernel; then kernel, plain and
-   ``scaled_dot_product_attention`` times at phi3's serving shape;
+1. the paged kernels against their plain PyTorch versions on the card,
+   at phi3's attention shape (32 heads, head dim 96) with serving
+   lengths (up to 256) and long-context ones (up to 4096),
+   starcoder2-7b's (36 over 4 kv heads, head dim 128) short and long (up
+   to 2048) and an odd one (7 query heads per kv head, head dim 72, page
+   5), ragged lengths, shared prefix pages and out-of-range table
+   entries, float32 and bfloat16, the multi-token fold and the int8
+   kernel; every paged kernel's registers and spills (ptxas; none may
+   spill); then at the three timed shapes (phi3 serving and long
+   context, starcoder2-7b long; bf16, L2 cold): two launches
+   bit-identical, each row alone equal to its row in the batch and the
+   fold's rows equal to single-row calls, and the device time of kernel,
+   plain version and ``scaled_dot_product_attention`` (each backend
+   pinned in turn, the fastest kept) beside the bound, gated: at most
+   0.020 ms at phi3's serving shape, at most 3x the bound at its long
+   context, and no slower than SDPA at each;
 2. ``Serve.local`` serving 8 requests with speculative decode (spec_k=3),
    4 slots, round-robin parking: tokens/s, steps, acceptance, kernel
    launches (one per layer per token), peak memory;
@@ -101,6 +111,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 # deterministic cuBLAS for the training phases: read when cuBLAS starts
 os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
@@ -138,6 +149,11 @@ SEED = 0
 F32_TOL = dict(atol=3e-6, rtol=1e-5)     # tests/test_paged_attention.py
 BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 QUANT_VS_F32 = 0.05                      # tests/test_codecs.py:238
+# bf16 paged kernels against their own algorithm in f32 arithmetic (the
+# split form in kernels.ref, p rounded as the kernel rounds it): the
+# output's one bf16 rounding (at most 2^-7 of a value) plus p's roundings
+# moved by f32 noise, the latter against the rms of each row's output
+SPLIT_TOL = dict(rtol=1e-2, rms=2e-2)
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}   # non-tensor f32, bf16
 DEVICE = "cuda"
@@ -218,6 +234,24 @@ def check_scaled(name, got, want, rel):
     return worst
 
 
+def check_split(name, got, want, rows):
+    """Raise unless |got - want| <= rtol |want| + rms * (the rms of want's
+    row), over ``rows`` rows (a length-0 row must match exactly); return
+    the largest error over its row's rms."""
+    got, want = got.float().reshape(rows, -1), want.float().reshape(rows, -1)
+    rms = want.pow(2).mean(dim=1, keepdim=True).sqrt()
+    err = (got - want).abs()
+    over = (err - SPLIT_TOL["rtol"] * want.abs()
+            - SPLIT_TOL["rms"] * rms).max().item()
+    worst = (err / rms.clamp(min=1e-30)).max().item()
+    say(f"  {name}: max_abs_err / row rms = {worst:.3e} (rtol="
+        f"{SPLIT_TOL['rtol']}, {SPLIT_TOL['rms']} x row rms)")
+    if not torch.isfinite(got).all() or over > 0:
+        raise AssertionError(f"{name}: kernel disagrees with its algorithm "
+                             f"in f32 (max error / row rms {worst:.3e})")
+    return worst
+
+
 def time_ms(fn, iters=100, warmup=10) -> float:
     for _ in range(warmup):
         fn()
@@ -230,6 +264,40 @@ def time_ms(fn, iters=100, warmup=10) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+class DeviceTime(NamedTuple):
+    ms: float          # the median trace's device time per call
+    traces_ms: list    # every trace's, in the order taken
+    launches: float    # the median trace's device activities per call
+
+
+def device_time(fn, reps=40, traces=3) -> DeviceTime:
+    """Device time per call of everything ``fn`` launches: the durations
+    of its kernels in a ``torch.profiler`` trace of ``reps`` calls, summed,
+    so neither host time nor the gaps between launches count; the median
+    of ``traces`` traces (a trace now and then comes back empty or short),
+    with the number of device activities (kernels, copies, sets) per call
+    that the same trace holds."""
+    from torch.autograd import DeviceType
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per_call, launches = [], []
+    for _ in range(traces):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        per_call.append(sum(ev.device_time_total for ev in prof.key_averages())
+                        / reps / 1e3)
+        launches.append(sum(ev.device_type == DeviceType.CUDA
+                            for ev in prof.events()) / reps)
+    mid = sorted(range(traces), key=per_call.__getitem__)[traces // 2]
+    if per_call[mid] <= 0:
+        raise AssertionError("the profiler saw no device time")
+    return DeviceTime(per_call[mid], per_call, launches[mid])
 
 
 # ---------------------------------------------------------------------- #
@@ -282,106 +350,273 @@ def kernel_bound_ms(q, k_pages, table, lengths, quant=False) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def sdpa_ms(q, k_pages, v_pages, table, lengths) -> float:
-    """One PyTorch call computing the same function over the cache gathered
-    beforehand (the yardstick; the port never calls it)."""
+def sdpa_ms(q, k_layers, v_layers, table, lengths, traces=5) -> tuple:
+    """One PyTorch call computing the same function (the yardstick; the
+    port never calls it): SDPA over each layer's cache gathered
+    beforehand, cycling over the layers as the kernel is timed, so that
+    each call finds L2 cold.  Each backend is pinned in turn, with the kv
+    heads shared through ``enable_gqa`` where the backend takes it and
+    repeated to every query head where not; returns the fastest that takes
+    the boolean mask by device time, as (:class:`DeviceTime`,
+    "sdpa/<backend>", eager ms)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
-    n = k_pages.shape[0]
+    n = k_layers.shape[1]
     b, hq, d = q.shape
-    g = hq // k_pages.shape[2]
+    g = hq // k_layers.shape[3]
     tb = table.clamp(0, n - 1).long()
-    kc = ref.gather_pages(k_pages, tb).repeat_interleave(g, 2).transpose(1, 2)
-    vc = ref.gather_pages(v_pages, tb).repeat_interleave(g, 2).transpose(1, 2)
-    kc, vc = kc.contiguous().to(q.dtype), vc.contiguous().to(q.dtype)
-    s = kc.shape[2]
+
+    def gathered(pages, repeat):
+        c = ref.gather_pages(pages, tb).to(q.dtype)
+        return (c.repeat_interleave(g, 2) if repeat else c).transpose(1, 2).contiguous()
+
+    s = tb.shape[1] * k_layers.shape[2]
     mask = (torch.arange(s, device=DEVICE)[None, :] < lengths[:, None].long())
     mask = mask[:, None, None, :]
     q4 = q[:, :, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(q4, kc, vc,
-                                                          attn_mask=mask))
+    best = (None, None, None)
+    for repeat in ((False, True) if g > 1 else (True,)):
+        caches = [(gathered(kl, repeat), gathered(vl, repeat))
+                  for kl, vl in zip(k_layers, v_layers)]
+        layer = itertools.cycle(caches)
+        for backend in (SDPBackend.FLASH_ATTENTION,
+                        SDPBackend.EFFICIENT_ATTENTION,
+                        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+            def call():
+                kc, vc = next(layer)
+                return F.scaled_dot_product_attention(
+                    q4, kc, vc, attn_mask=mask, enable_gqa=not repeat)
+            try:
+                with sdpa_kernel(backend):
+                    call()
+                    torch.cuda.synchronize()
+                    dev = device_time(call, traces=traces)
+                    eager = time_ms(call)
+            except RuntimeError:
+                continue          # this backend does not take these inputs
+            name = f"sdpa/{backend.name.lower().replace('_attention', '')}"
+            name += "" if g == 1 else ("+repeated_kv" if repeat else "+gqa")
+            say(f"    {name}: {dev.ms:.5f} ms on the device (traces "
+                f"{', '.join(f'{x:.5f}' for x in dev.traces_ms)}), "
+                f"{eager:.5f} ms eager")
+            if best[0] is None or dev.ms < best[0].ms:
+                best = (dev, name, eager)
+        del caches, layer
+        release()
+    if best[1] is None:
+        raise AssertionError("no SDPA backend took the boolean mask")
+    return best
 
 
-def phase1() -> dict:
-    say("== phase 1: kernels against their plain versions")
-    f32, bf16 = torch.float32, torch.bfloat16
-    shapes = {
-        "phi3 (Hq=Hkv=32, D=96)": (4, 32, 32, 96, 16, 16, [256, 203, 96, 37]),
-        "starcoder2-7b (Hq=36, Hkv=4, D=128)": (3, 36, 4, 128, 16, 8,
-                                                [128, 77, 1]),
-    }
-    errs = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
-    for label, (b, hq, hkv, d, page, n_p, lens) in shapes.items():
-        for dtype in (f32, bf16):
-            tol = F32_TOL if dtype == f32 else BF16_TOL
-            q, k, v, table, lengths = make_case(b, hq, hkv, d, page, n_p,
-                                                lens, dtype)
-            k, v = k[0], v[0]
-            tag = f"{label} {str(dtype)[6:]}"
-            got = ops.paged_attention(q, k, v, table, lengths)
-            want = ops.paged_attention(q, k, v, table, lengths,
-                                       use_kernel=False)
-            errs["paged_attention"] = max(errs["paged_attention"], check_close(
-                f"paged_attention {tag}", got, want, **tol))
-            # the multi-token fold: 4 candidate rows per lane
-            t_rows = 4
-            gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-            qm = torch.randn(b, t_rows, hq, d, generator=gen,
-                             device=DEVICE).to(dtype)
-            base = (lengths.clamp(min=t_rows) - t_rows).to(torch.int32)
-            positions = base[:, None] + torch.arange(
-                t_rows, dtype=torch.int32, device=DEVICE)[None]
-            got = ops.paged_attention_multitok(qm, k, v, table, positions)
-            want = ops.paged_attention_multitok(qm, k, v, table, positions,
-                                                use_kernel=False)
-            check_close(f"paged_attention_multitok {tag}", got, want, **tol)
-            # the int8 kernel against its plain version
-            kq, ks = ref.quantize_pages(k)
-            vq, vs = ref.quantize_pages(v)
-            got = ops.paged_attention_quant(q, kq, ks, vq, vs, table, lengths)
-            want = ops.paged_attention_quant(q, kq, ks, vq, vs, table, lengths,
-                                             use_kernel=False)
-            errs["paged_attention_quant"] = max(
-                errs["paged_attention_quant"],
-                check_close(f"paged_attention_quant {tag}", got, want, **tol))
-            got = ops.paged_attention_quant_multitok(qm, kq, ks, vq, vs,
-                                                     table, positions)
-            want = ops.paged_attention_quant_multitok(
-                qm, kq, ks, vq, vs, table, positions, use_kernel=False)
-            check_close(f"paged_attention_quant_multitok {tag}", got, want,
-                        **tol)
-            if dtype == f32:
-                # the int8 kernel is the float32 kernel on the dequantized
-                # pool, and within the reference's int8 gate of the float32
-                # kernel on the original pool
-                got = ops.paged_attention_quant(q, kq, ks, vq, vs, table,
-                                                lengths)
-                deq = ops.paged_attention(q, kq.float() * ks[..., None],
-                                          vq.float() * vs[..., None], table,
-                                          lengths)
-                check_close(f"paged_attention_quant vs float32 kernel on the "
-                            f"dequantized pool {tag}", got, deq, **F32_TOL)
-                orig = ops.paged_attention(q, k, v, table, lengths)
-                check_close(f"paged_attention_quant vs float32 kernel on the "
-                            f"original pool {tag}", got, orig,
-                            atol=QUANT_VS_F32, rtol=QUANT_VS_F32)
-            # rows of length 0 give zeros, as the reference kernel's _fin
-            zero = torch.zeros_like(lengths)
-            if ops.paged_attention(q, k, v, table, zero).abs().max() != 0:
-                raise AssertionError(f"length-0 rows are not zero ({tag})")
-            if ops.paged_attention_quant(q, kq, ks, vq, vs, table,
-                                         zero).abs().max() != 0:
-                raise AssertionError(f"length-0 quant rows not zero ({tag})")
-    torch.cuda.synchronize()
+# correctness shapes of the paged kernels: b, hq, hkv, d, page, nP, lengths
+PAGED_SHAPES = {
+    "phi3 (Hq=Hkv=32, D=96)": (4, 32, 32, 96, 16, 16, [256, 203, 96, 37]),
+    "starcoder2-7b (Hq=36, Hkv=4, D=128)": (3, 36, 4, 128, 16, 8,
+                                            [128, 77, 1]),
+    "phi3 long context": (4, 32, 32, 96, 16, 256, [4096, 3001, 1024, 200]),
+    "starcoder2-7b long context": (4, 36, 4, 128, 16, 128,
+                                   [2048, 1500, 512, 64]),
+    # g = 7 (passes of 4, 2 and 1 query heads), int8 rows of D % 16 = 8
+    # (8-byte copies), an odd page, a row one past a span and one on it
+    "Hq=28, Hkv=4, D=72, page 5": (3, 28, 4, 72, 5, 13, [65, 64, 7]),
+}
+# timed shapes (bf16, cold L2) and their gates, each on both kernels: a
+# fixed ceiling in ms, a multiple of the bound, and no slower than SDPA
+PAGED_TIMED = {
+    "serving": ("phi3 (Hq=Hkv=32, D=96)", dict(max_ms=0.020)),
+    "long_context": ("phi3 long context", dict(max_bound_x=3.0)),
+    "starcoder2": ("starcoder2-7b long context", {}),
+}
 
-    # times at phi3's serving shape: 4 slots over a 128-page pool, bf16,
-    # one layer's pool per call out of 8, so each call finds L2 cold
-    b, hq, hkv, d, page, n_p, lens = shapes["phi3 (Hq=Hkv=32, D=96)"]
-    q, k, v, table, lengths = make_case(b, hq, hkv, d, page, n_p, lens, bf16,
-                                        layers=8)
+
+def ptxas_report(log: str) -> dict:
+    """Registers and spills per kernel instantiation in an ``-Xptxas -v``
+    log, by demangled name where ``cu++filt`` is at hand."""
+    report, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = m[1]
+            report[cur] = {}
+        elif cur and "spill stores" in line:
+            stores, loads = re.findall(r"(\d+) bytes spill", line)
+            report[cur].update(spill_stores=int(stores), spill_loads=int(loads))
+        elif cur and "Used" in line and "registers" in line:
+            report[cur]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    filt = Path(_build.nvcc()).parent / "cu++filt"
+    names = list(report)
+    if filt.exists() and names:
+        out = subprocess.run([str(filt)] + names, capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(out) == len(names):   # "void <unnamed>::f<...>(<unnamed>::Args)"
+            report = {nice.rsplit("(", 1)[0].replace("void ", "", 1)
+                      .replace("<unnamed>::", ""): report[raw]
+                      for raw, nice in zip(names, out)}
+    return report
+
+
+def paged_ptxas() -> dict:
+    """Registers and spills of every paged kernel instantiation, from the
+    build's ``-Xptxas -v`` report; raises if one spills."""
+    log = _build.build_log.get("paged_attention")
+    if log is None:
+        raise AssertionError("no ptxas report: paged_attention.cu was not built "
+                             "by this run (delete build/repro_torch_kernels)")
+    report = ptxas_report(log)
+    for key, entry in report.items():
+        say(f"  ptxas {key}: {entry.get('registers')} registers, spill stores "
+            f"{entry.get('spill_stores')} B / loads {entry.get('spill_loads')} B")
+    spilled = [k for k, e in report.items()
+               if e.get("spill_stores", 0) or e.get("spill_loads", 0)]
+    if not report or spilled:
+        raise AssertionError(f"paged kernels that spill: {spilled}")
+    return report
+
+
+def paged_checks(label, shape, dtype, errs) -> None:
+    """Both paged kernels (and their multi-token folds) against their plain
+    versions at one shape; length-0 rows give zeros."""
+    b, hq, hkv, d, page, n_p, lens = shape
+    tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+    q, k, v, table, lengths = make_case(b, hq, hkv, d, page, n_p, lens, dtype)
+    k, v = k[0], v[0]
+    tag = f"{label} {str(dtype)[6:]}"
+    split = pa.split_tokens()
+    got = ops.paged_attention(q, k, v, table, lengths)
+    want = ops.paged_attention(q, k, v, table, lengths, use_kernel=False)
+    errs["paged_attention"] = max(errs["paged_attention"], check_close(
+        f"paged_attention {tag}", got, want, **tol))
+    if dtype == torch.bfloat16:
+        check_split(f"paged_attention {tag} vs its algorithm in f32", got,
+                    ref.paged_attention_split(q, k, v, table, lengths, split), b)
+    # the multi-token fold: 4 candidate rows per lane, which are rows of
+    # lane b's table at lengths positions + 1
+    t_rows = 4
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
+    qm = torch.randn(b, t_rows, hq, d, generator=gen, device=DEVICE).to(dtype)
+    base = (lengths.clamp(min=t_rows) - t_rows).to(torch.int32)
+    positions = base[:, None] + torch.arange(
+        t_rows, dtype=torch.int32, device=DEVICE)[None]
+    fold = (qm.reshape(b * t_rows, hq, d), table.repeat_interleave(t_rows, 0),
+            positions.reshape(-1) + 1)
+    got = ops.paged_attention_multitok(qm, k, v, table, positions)
+    want = ops.paged_attention_multitok(qm, k, v, table, positions,
+                                        use_kernel=False)
+    check_close(f"paged_attention_multitok {tag}", got, want, **tol)
+    if dtype == torch.bfloat16:
+        check_split(f"paged_attention_multitok {tag} vs its algorithm in f32",
+                    got, ref.paged_attention_split(fold[0], k, v, *fold[1:],
+                                                   split), b * t_rows)
+    # the int8 kernel against its plain version
     kq, ks = ref.quantize_pages(k)
     vq, vs = ref.quantize_pages(v)
+    got = ops.paged_attention_quant(q, kq, ks, vq, vs, table, lengths)
+    want = ops.paged_attention_quant(q, kq, ks, vq, vs, table, lengths,
+                                     use_kernel=False)
+    errs["paged_attention_quant"] = max(
+        errs["paged_attention_quant"],
+        check_close(f"paged_attention_quant {tag}", got, want, **tol))
+    if dtype == torch.bfloat16:
+        check_split(f"paged_attention_quant {tag} vs its algorithm in f32",
+                    got, ref.paged_attention_quant_split(
+                        q, kq, ks, vq, vs, table, lengths, split), b)
+    got = ops.paged_attention_quant_multitok(qm, kq, ks, vq, vs, table,
+                                             positions)
+    want = ops.paged_attention_quant_multitok(
+        qm, kq, ks, vq, vs, table, positions, use_kernel=False)
+    check_close(f"paged_attention_quant_multitok {tag}", got, want, **tol)
+    if dtype == torch.bfloat16:
+        check_split(f"paged_attention_quant_multitok {tag} vs its algorithm "
+                    "in f32", got, ref.paged_attention_quant_split(
+                        fold[0], kq, ks, vq, vs, *fold[1:], split), b * t_rows)
+    if dtype == torch.float32:
+        # the int8 kernel is the float32 kernel on the dequantized pool,
+        # and within the reference's int8 gate of the float32 kernel on
+        # the original pool
+        got = ops.paged_attention_quant(q, kq, ks, vq, vs, table, lengths)
+        deq = ops.paged_attention(q, kq.float() * ks[..., None],
+                                  vq.float() * vs[..., None], table, lengths)
+        check_close(f"paged_attention_quant vs float32 kernel on the "
+                    f"dequantized pool {tag}", got, deq, **F32_TOL)
+        orig = ops.paged_attention(q, k, v, table, lengths)
+        check_close(f"paged_attention_quant vs float32 kernel on the "
+                    f"original pool {tag}", got, orig,
+                    atol=QUANT_VS_F32, rtol=QUANT_VS_F32)
+    # rows of length 0 give zeros, as the reference kernel's _fin
+    zero = torch.zeros_like(lengths)
+    if ops.paged_attention(q, k, v, table, zero).abs().max() != 0:
+        raise AssertionError(f"length-0 rows are not zero ({tag})")
+    if ops.paged_attention_quant(q, kq, ks, vq, vs, table,
+                                 zero).abs().max() != 0:
+        raise AssertionError(f"length-0 quant rows not zero ({tag})")
+
+
+def paged_exact(label, q, calls, table, lengths) -> None:
+    """Each kernel repeats bit for bit, and each row computed alone (B = 1,
+    its table row and its length) equals the same row in the batch."""
+    for name, call in calls.items():
+        full = call(q, table, lengths)
+        if not torch.equal(full, call(q, table, lengths)):
+            raise AssertionError(f"{name} at {label}: two launches differ")
+        for r in range(q.shape[0]):
+            alone = call(q[r:r + 1], table[r:r + 1], lengths[r:r + 1])
+            if not torch.equal(alone[0], full[r]):
+                raise AssertionError(f"{name} at {label}: row {r} alone "
+                                     "differs from the batch's row")
+    say(f"  {label}: both kernels repeat bit for bit; every row alone equals "
+        f"its row in the batch ({q.shape[0]} rows)")
+
+
+def paged_fold_exact(q, k, v, table, lengths) -> None:
+    """The multi-token fold's rows equal single-row calls at the same
+    lengths, bit for bit, on both kernels."""
+    b, hq, d = q.shape
+    t_rows = 4
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
+    qm = torch.randn(b, t_rows, hq, d, generator=gen, device=DEVICE).to(q.dtype)
+    positions = ((lengths.clamp(min=t_rows) - t_rows)[:, None]
+                 + torch.arange(t_rows, device=DEVICE)[None]).to(torch.int32)
+    kq, ks = ref.quantize_pages(k)
+    vq, vs = ref.quantize_pages(v)
+    folds = {
+        "paged_attention": (
+            pa.paged_attention_multitok(qm, k, v, table, positions),
+            lambda x, t, ln: pa.paged_attention(x, k, v, t, ln)),
+        "paged_attention_quant": (
+            pa.paged_attention_quant_multitok(qm, kq, ks, vq, vs, table,
+                                              positions),
+            lambda x, t, ln: pa.paged_attention_quant(x, kq, ks, vq, vs, t, ln)),
+    }
+    for name, (fold, single) in folds.items():
+        for i in range(b):
+            for j in range(t_rows):
+                one = single(qm[i, j][None].contiguous(), table[i:i + 1],
+                             positions[i, j:j + 1] + 1)
+                if not torch.equal(one[0], fold[i, j]):
+                    raise AssertionError(f"{name}: fold row ({i}, {j}) differs "
+                                         "from the single-row call")
+    say(f"  the multi-token folds' {b * t_rows} rows equal single-row calls "
+        "on both kernels")
+
+
+def paged_times(key, label, gates, failures) -> dict:
+    """Kernel, plain, SDPA and bound at one shape (bf16, one layer's pool
+    per call out of 8, so each call finds L2 cold); the repeat and
+    batch-independence checks there; the gates, collected in
+    ``failures``."""
+    b, hq, hkv, d, page, n_p, lens = PAGED_SHAPES[label]
+    q, k, v, table, lengths = make_case(b, hq, hkv, d, page, n_p, lens,
+                                        torch.bfloat16, layers=8)
+    kq, ks = ref.quantize_pages(k)
+    vq, vs = ref.quantize_pages(v)
+    paged_exact(label, q, {
+        "paged_attention": lambda x, t, ln: pa.paged_attention(
+            x, k[0], v[0], t, ln),
+        "paged_attention_quant": lambda x, t, ln: pa.paged_attention_quant(
+            x, kq[0], ks[0], vq[0], vs[0], t, ln)}, table, lengths)
+    if key == "serving":
+        paged_fold_exact(q, k[0], v[0], table, lengths)
     layer = itertools.cycle(range(8))
-    rec = {}
 
     def plain_call(li, use_kernel=False):
         return ops.paged_attention(q, k[li], v[li], table, lengths,
@@ -395,34 +630,93 @@ def phase1() -> dict:
         "paged_attention": (
             lambda: plain_call(next(layer), use_kernel=None),
             lambda: plain_call(next(layer)),
-            lambda: sdpa_ms(q, k[0], v[0], table, lengths),
-            kernel_bound_ms(q, k[0], table, lengths),
-            "src/repro/kernels/paged_attention.py:130"),
+            lambda: sdpa_ms(q, k, v, table, lengths),
+            kernel_bound_ms(q, k[0], table, lengths)),
         "paged_attention_quant": (
             lambda: quant_call(next(layer)),
             lambda: quant_call(next(layer), use_kernel=False),
-            lambda: sdpa_ms(q, kq[0].float() * ks[0][..., None],
-                            vq[0].float() * vs[0][..., None], table, lengths),
-            kernel_bound_ms(q, kq[0], table, lengths, quant=True),
-            "src/repro/kernels/paged_attention.py:341"),
+            lambda: sdpa_ms(q, kq.float() * ks[..., None],
+                            vq.float() * vs[..., None], table, lengths),
+            kernel_bound_ms(q, kq[0], table, lengths, quant=True)),
     }
-    for name, (kern, plain, lib, (bound, bound_by), replaces) in timed.items():
-        ms = time_ms(kern)
-        plain_ms = time_ms(plain, iters=20, warmup=3)
-        library_ms = lib()
+    plan = pa.split_plan(b, hq, hkv, d, page, n_p, pa.split_tokens())
+    say(f"  {label}: {plan.max_splits} spans per row at most, {plan.blocks} "
+        f"blocks, {plan.cuda_launches} CUDA launch(es) per call planned")
+    rec = {}
+    for name, (kern, plain, lib, (bound, bound_by)) in timed.items():
+        dev = device_time(kern, traces=5)
+        ms = dev.ms
+        eager = time_ms(kern)
+        plain_ms = device_time(plain, reps=10).ms
+        library_dev, library, library_eager = lib()
+        library_ms = library_dev.ms
+        rec[name] = {"ms": ms, "kernel_ms": ms, "eager_ms": eager,
+                     "traces_ms": dev.traces_ms,
+                     "cuda_launches_per_call": dev.launches,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": library_ms,
+                     "library": library, "library_eager_ms": library_eager,
+                     "library_traces_ms": library_dev.traces_ms,
+                     "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d,
+                               "page": page, "nP": n_p, "lengths": lens,
+                               "dtype": "bfloat16"}}
+        say(f"  {name} at {label}: kernel {ms:.5f} ms ({eager:.5f} eager; "
+            f"{dev.launches:g} CUDA launches per call in its trace; traces "
+            f"{', '.join(f'{x:.5f}' for x in dev.traces_ms)}), plain "
+            f"{plain_ms:.5f} ms, {library} {library_ms:.5f} ms "
+            f"({library_eager:.5f} eager), bound {bound:.5f} ms ({bound_by}; "
+            f"kernel at {bound / ms:.1%} of it)")
+        if dev.launches != plan.cuda_launches:
+            failures.append(f"{name} at {label}: {dev.launches:g} CUDA "
+                            f"launches per call traced, {plan.cuda_launches} "
+                            "planned")
+        limits = [("SDPA", library_ms)]
+        if "max_ms" in gates:
+            limits.append((f"{gates['max_ms']} ms", gates["max_ms"]))
+        if "max_bound_x" in gates:
+            limits.append((f"{gates['max_bound_x']}x its bound",
+                           gates["max_bound_x"] * bound))
+        for what, limit in limits:
+            if ms > limit:
+                failures.append(f"{name} at {label}: {ms:.5f} ms > {what} "
+                                f"({limit:.5f} ms)")
+    del q, k, v, kq, ks, vq, vs, timed
+    release()
+    return rec
+
+
+def phase1() -> dict:
+    say("== phase 1: kernels against their plain versions")
+    errs = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+    for label, shape in PAGED_SHAPES.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            paged_checks(label, shape, dtype, errs)
+            release()
+    torch.cuda.synchronize()
+    ptxas = paged_ptxas()
+
+    failures = []
+    times = {key: paged_times(key, label, gates, failures)
+             for key, (label, gates) in PAGED_TIMED.items()}
+    rec = {}
+    for name, replaces in (("paged_attention",
+                            "src/repro/kernels/paged_attention.py:130"),
+                           ("paged_attention_quant",
+                            "src/repro/kernels/paged_attention.py:341")):
         rec[name] = {
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
             "replaces": replaces, "launches": 0,
-            "max_abs_err": errs[name], "ms": ms, "kernel_ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-            "library_ms": library_ms,
-            "shape": {"B": b, "Hq": hq, "Hkv": hkv, "D": d, "page": page,
-                      "lengths": lens, "dtype": "bfloat16"},
+            "design": "split-sequence spans of "
+                      f"{pa.split_tokens()} positions, in-order combine",
+            "max_abs_err": errs[name], **times["serving"][name],
+            "at_long_context": times["long_context"][name],
+            "at_starcoder2": times["starcoder2"][name],
+            "ptxas": ptxas,
         }
-        say(f"  {name} at phi3's serving shape: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {bound:.4f} "
-            f"ms ({bound_by})")
+    if failures:
+        raise AssertionError("paged kernel gates failed:\n  "
+                             + "\n  ".join(failures))
     return rec
 
 

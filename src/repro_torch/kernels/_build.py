@@ -29,9 +29,10 @@ _L = ctypes.c_longlong
 SIGNATURES: Dict[str, Dict[str, List]] = {
     "paged_attention": {
         "repro_paged_attention":
-            [_I] + [_P] * 6 + [_I] * 7 + [_F, _P],
+            [_I] + [_P] * 7 + [_I] * 8 + [_F, _P],
         "repro_paged_attention_quant":
-            [_I] + [_P] * 8 + [_I] * 7 + [_F, _P],
+            [_I] + [_P] * 9 + [_I] * 8 + [_F, _P],
+        "repro_paged_split_tokens": [],
     },
     "flash_attention": {
         "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 6 + [_F, _I, _P],

@@ -8,16 +8,23 @@ only and launch the kernel on PyTorch's current stream; the plain
 versions live in :mod:`repro_torch.kernels.ref`, and
 :mod:`repro_torch.kernels.ops` picks between the two by device.
 
-Each kernel wrapper counts its launches in ``<wrapper>.launches``, so a
-run can show that its attention went through the kernel.  Table entries
-are clamped to ``[0, N-1]`` as the reference clamps them
-(``paged_attention.py:109``, ``:316``); the kernel applies the clamp as it
-reads each entry, which saves a separate launch per call.
+Each kernel wrapper counts its calls in ``<wrapper>.launches``, so a
+run can show that its attention went through the kernel; a call is two
+CUDA launches, the spans and their combine, or one when no row can have
+two spans (:func:`split_plan`).  Table entries are clamped to ``[0, N-1]``
+as the reference clamps them (``paged_attention.py:109``, ``:316``); the
+kernel applies the clamp as it reads each entry, which saves a separate
+launch per call.
+
+The kernel cuts every row into spans of a fixed number of positions (a
+constant of the source) and writes each span's partial softmax to a
+workspace that the wrapper allocates here; :func:`split_plan` is that
+arithmetic.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -26,9 +33,9 @@ from repro_torch.kernels.ref import quantize_pages
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["paged_attention", "paged_attention_multitok",
+__all__ = ["SplitPlan", "paged_attention", "paged_attention_multitok",
            "paged_attention_quant", "paged_attention_quant_multitok",
-           "quantize_pages"]
+           "quantize_pages", "split_plan", "split_tokens"]
 
 
 def _check(q: torch.Tensor, pages: torch.Tensor, table: torch.Tensor,
@@ -77,6 +84,57 @@ def _raise_on(err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed with CUDA error {err}")
 
 
+class SplitPlan(NamedTuple):
+    """What one call launches and allocates."""
+    max_splits: int     # spans per row at most: ceil(nP * page / split)
+    blocks: int         # blocks of the span kernel, one per (row, kv head, span)
+    workspace: int      # f32 elements: (B, Hq, max_splits, D) partial
+    #                     numerators, then (B, Hq, max_splits, 2) max and sum
+    cuda_launches: int  # 2 (spans, then their combine), or 1 for one span
+
+
+def split_plan(b: int, hq: int, hkv: int, d: int, page: int, n_p: int,
+               split: int) -> SplitPlan:
+    """The kernel's spans for a (B, Hq, D) query over (B, nP) tables of
+    ``page``-position pages, ``split`` positions per span: no workspace and
+    no combine launch when no row can have two spans."""
+    max_splits = -(-(n_p * page) // split)
+    several = max_splits > 1
+    return SplitPlan(
+        max_splits=max_splits, blocks=b * hkv * max_splits,
+        workspace=b * hq * max_splits * (d + 2) if several else 0,
+        cuda_launches=2 if several else 1)
+
+
+_spans: Dict[int, int] = {}
+
+
+def _library():
+    """The built library and its span length, looked up once per call."""
+    lib = _build.library("paged_attention")
+    split = _spans.get(id(lib))
+    if split is None:
+        split = _spans[id(lib)] = lib.repro_paged_split_tokens()
+    return lib, split
+
+
+def split_tokens() -> int:
+    """Positions per span in the built source."""
+    return _library()[1]
+
+
+def _workspace(plan: SplitPlan, dev: torch.device) -> Optional[torch.Tensor]:
+    """The plan's workspace, fresh for each call (the kernel allocates
+    nothing); None when the plan needs none."""
+    if not plan.workspace:
+        return None
+    return torch.empty(plan.workspace, dtype=torch.float32, device=dev)
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
 def paged_attention(
     q: torch.Tensor,          # (B, Hq, D) one new token per sequence
     k_pages: torch.Tensor,    # (N, page, Hkv, D) physical key pool
@@ -93,13 +151,17 @@ def paged_attention(
     _checked((q, k_pages, v_pages, page_table, lengths), q.device)
     b, hq, d = q.shape
     n, page, hkv, _ = k_pages.shape
+    n_p = page_table.shape[1]
     scale = float(d ** -0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
-    lib = _build.library("paged_attention")
+    lib, split = _library()
+    plan = split_plan(b, hq, hkv, d, page, n_p, split)
+    ws = _workspace(plan, q.device)
     err = lib.repro_paged_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, hq, hkv, d, n, page, page_table.shape[1], scale,
+        out.data_ptr(), _ptr(ws), b, hq, hkv, d, n, page,
+        n_p, plan.max_splits, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1
@@ -132,15 +194,18 @@ def paged_attention_quant(
     _checked((q, k_pages, v_pages, k_scales, v_scales, page_table, lengths),
              q.device)
     b, hq, d = q.shape
+    n_p = page_table.shape[1]
     scale = float(d ** -0.5) if scale is None else float(scale)
     out = torch.empty_like(q)
-    lib = _build.library("paged_attention")
+    lib, split = _library()
+    plan = split_plan(b, hq, hkv, d, page, n_p, split)
+    ws = _workspace(plan, q.device)
     err = lib.repro_paged_attention_quant(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        b, hq, hkv, d, n, page, page_table.shape[1], scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        _ptr(ws), b, hq, hkv, d, n, page, n_p,
+        plan.max_splits, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention_quant")
     paged_attention_quant.launches += 1
     return out

@@ -166,6 +166,70 @@ def paged_attention_quant_multitok(
     return out.reshape((b, t) + out.shape[1:])
 
 
+def paged_attention_split(
+    q: torch.Tensor,          # (B, Hq, D)
+    k_pages: torch.Tensor,    # (N, page, Hkv, D)
+    v_pages: torch.Tensor,    # (N, page, Hkv, Dv)
+    page_table: torch.Tensor,  # (B, nP) int32, clamped to [0, N) here
+    lengths: torch.Tensor,    # (B,)
+    split: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The CUDA kernel's algorithm, written plainly: each row's valid
+    positions (``min(lengths[b], nP*page)``) are cut into spans of
+    ``split``; each span takes its own max ``m_s``, ``e = exp(s - m_s)``,
+    ``l_s = sum e`` and ``acc_s = p V`` with ``p`` rounded to the pool's
+    dtype; the spans combine in order 0, 1, ...: ``m = max m_s``, ``l =
+    sum l_s e^(m_s - m)``, ``acc = sum acc_s e^(m_s - m)``, and the output
+    is ``acc / max(l, 1e-30)`` in q's dtype (zeros where the length is
+    0).  Scores are ``(q . k) * scale`` in f32.  For the tests and
+    ``chip_smoke.py``; the port's paths call :func:`paged_attention`."""
+    b, hq, d = q.shape
+    n, page, hkv, dv = v_pages.shape
+    g = hq // hkv
+    scale = (d ** -0.5) if scale is None else scale
+    span = page_table.shape[1] * page
+    table = page_table.long().clamp(0, n - 1)
+    k = gather_pages(k_pages, table)
+    v = gather_pages(v_pages, table)
+    f32 = torch.float32
+    out = torch.zeros((b, hkv, g, dv), dtype=f32, device=q.device)
+    for r in range(b):
+        length = max(0, min(int(lengths[r]), span))
+        qr = q[r].to(f32).reshape(hkv, g, d)
+        parts = []
+        for lo in range(0, length, split):
+            hi = min(length, lo + split)
+            s = torch.einsum("hgd,thd->hgt", qr, k[r, lo:hi].to(f32)) * scale
+            m = s.amax(dim=-1)
+            e = torch.exp(s - m[..., None])
+            p = e.to(v.dtype).to(f32)
+            parts.append((m, e.sum(dim=-1),
+                          torch.einsum("hgt,thd->hgd", p, v[r, lo:hi].to(f32))))
+        if not parts:
+            continue
+        m = torch.stack([m_s for m_s, _, _ in parts]).amax(dim=0)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((hkv, g, dv), dtype=f32, device=q.device)
+        for m_s, l_s, acc_s in parts:
+            w = torch.exp(m_s - m)
+            l = l + l_s * w
+            acc = acc + acc_s * w[..., None]
+        out[r] = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(b, hq, dv).to(q.dtype)
+
+
+def paged_attention_quant_split(q, k_pages, k_scales, v_pages, v_scales,
+                                page_table, lengths, split: int,
+                                scale: Optional[float] = None) -> torch.Tensor:
+    """:func:`paged_attention_split` over an int8 pool, each row
+    dequantized by its f32 scale (``p`` stays f32)."""
+    kf = int8_dequantize(k_pages, k_scales[..., None])
+    vf = int8_dequantize(v_pages, v_scales[..., None])
+    return paged_attention_split(q, kf, vf, page_table, lengths, split,
+                                 scale=scale)
+
+
 def flash_attention(
     q: torch.Tensor,          # (B, Tq, Hq, D)
     k: torch.Tensor,          # (B, Tk, Hkv, D)

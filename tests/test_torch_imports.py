@@ -1,5 +1,6 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor anything of the reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+port's tools (``tools/*.py``) import neither JAX nor anything of the
+reference package ``repro``."""
 
 import json
 import os
@@ -42,8 +43,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
 def test_no_jax_or_reference_import_lines():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)"
                          r"|from repro\.|from repro import)", re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    tools = sorted((ROOT / "tools").glob("*.py"))    # the port's own tools
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools
     assert ROOT / "chip_smoke.py" in files and (ROOT / "chip_smoke.py").exists()
+    assert {f.name for f in tools} >= {"flash_variants.py", "paged_variants.py"}
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []

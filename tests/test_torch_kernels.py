@@ -157,6 +157,115 @@ def test_quant_multitok_matches_pallas_fold():
     np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32_TOL)
 
 
+# The CUDA kernel's split-and-combine algorithm (kernels/ref.py
+# ``paged_attention_split``) against the reference.  Page 4, 5 pages per
+# row, 2 kv heads with 3 query heads each; the rows' lengths end on a span
+# boundary, inside a span, at 0 (zeros), at nP*page and past it (clamped),
+# and table entries of -1 and past the pool clamp as they are read.
+SPLIT_PAGE, SPLIT_NP = 4, 5
+SPLIT_LENGTHS = [8, 7, 0, SPLIT_PAGE * SPLIT_NP, SPLIT_PAGE * SPLIT_NP + 9, 1,
+                 12, 13]
+
+
+def split_pool(seed=11):
+    b, hq, hkv, d = len(SPLIT_LENGTHS), 6, 2, 16
+    rng = np.random.default_rng(seed)
+    n = b * SPLIT_NP + 1
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((n, SPLIT_PAGE, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((n, SPLIT_PAGE, hkv, d)).astype(np.float32)
+    table = (1 + np.arange(b * SPLIT_NP, dtype=np.int32)).reshape(b, SPLIT_NP)
+    table[1, 0] = table[0, 0]                    # shared prefix page
+    table[6, 1] = -1                             # clamps to page 0
+    table[7, 2] = n + 3                          # clamps to page n-1
+    lengths = np.asarray(SPLIT_LENGTHS, np.int32)
+    for r in range(b):
+        used = -(-min(int(lengths[r]), SPLIT_NP * SPLIT_PAGE) // SPLIT_PAGE)
+        table[r, used:] = -1                     # sentinels past the end
+    return q, k, v, table, lengths
+
+
+_split_refs = {}
+
+
+def split_reference(kind):
+    """The inputs of ``kind`` and the Pallas kernel's output on them (in
+    interpret mode), computed once per kind."""
+    if kind not in _split_refs:
+        q, k, v, table, lengths = split_pool()
+        if kind == "int8":
+            kq, ks = jpa.quantize_pages(k)
+            vq, vs = jpa.quantize_pages(v)
+            pools = [np.asarray(x) for x in (kq, ks, vq, vs)]
+            pallas = jpa.paged_attention_pallas_quant(
+                q, *pools, table, lengths, interpret=True)
+        elif kind == "bf16":
+            pools = [jnp.asarray(x, jnp.bfloat16) for x in (k, v)]
+            pallas = jpa.paged_attention_pallas(
+                jnp.asarray(q, jnp.bfloat16), *pools, table, lengths,
+                interpret=True)
+        else:
+            pools = [k, v]
+            pallas = jpa.paged_attention_pallas(q, k, v, table, lengths,
+                                                interpret=True)
+        _split_refs[kind] = (q, pools, table, lengths, pallas)
+    return _split_refs[kind]
+
+
+@pytest.mark.parametrize("kind", ["f32", "int8", "bf16"])
+@pytest.mark.parametrize("split", [1, SPLIT_PAGE - 1, SPLIT_PAGE,
+                                   3 * SPLIT_PAGE])
+def test_split_and_combine_matches_pallas_and_jnp(split, kind):
+    q, pools, table, lengths, pallas = split_reference(kind)
+    if kind == "int8":
+        got = tref.paged_attention_quant_split(
+            t(q), *map(t, pools), t(table), t(lengths), split)
+    elif kind == "bf16":
+        got = tref.paged_attention_split(tb(q), *map(tb, pools), t(table),
+                                         t(lengths), split)
+        assert got.dtype == torch.bfloat16
+    else:
+        got = tref.paged_attention_split(t(q), *map(t, pools), t(table),
+                                         t(lengths), split)
+    tol = BF16_TOL if kind == "bf16" else F32_TOL
+    np.testing.assert_allclose(as_np(got), as_np(pallas), **tol)
+    assert not as_np(got)[2].any()               # length 0: zeros
+    if kind == "f32":
+        # the jnp oracle (clamped table): every row of non-zero length
+        n = pools[0].shape[0]
+        oracle = np.asarray(jpa.paged_attention(
+            q, *pools, np.clip(table, 0, n - 1), lengths))
+        live = lengths > 0
+        np.testing.assert_allclose(got.numpy()[live], oracle[live], **F32_TOL)
+
+
+@pytest.mark.parametrize("n_p,page,split", [
+    (16, 16, 64),         # phi3 serving: max_len 256 -> 4 spans
+    (256, 16, 64),        # 4096 positions -> 64 spans
+    (4, 16, 64),          # one span: no workspace, no combine launch
+    (5, 4, 3),            # a span that is not a page
+    (1, 1, 64),
+])
+def test_split_plan_arithmetic(n_p, page, split):
+    b, hq, hkv, d = 3, 36, 4, 128
+    plan = tpa.split_plan(b, hq, hkv, d, page, n_p, split)
+    spans = -(-(n_p * page) // split)
+    assert plan.max_splits == spans
+    assert plan.blocks == b * hkv * spans
+    several = spans > 1
+    assert plan.workspace == (b * hq * spans * (d + 2) if several else 0)
+    assert plan.cuda_launches == (2 if several else 1)
+    # every row, whatever its length, fits its spans into the plan, and the
+    # last partial and statistic of the last (row, head) lie inside it
+    for length in range(-1, n_p * page + 3):
+        used = max(1, -(-min(max(length, 0), n_p * page) // split))
+        assert used <= plan.max_splits
+    if several:
+        last_part = ((b * hq - 1) * spans + spans - 1) * d + d - 1
+        last_stat = b * hq * spans * d + ((b * hq - 1) * spans + spans - 1) * 2 + 1
+        assert last_part < b * hq * spans * d and last_stat == plan.workspace - 1
+
+
 def test_kernel_refuses_cpu_tensors():
     q, k, v, table, lengths = make_pool((2, 4, 4, 16, 8, 4), seed=7)
     with pytest.raises(ValueError, match="CUDA"):
@@ -195,6 +304,30 @@ def test_cuda_kernel_matches_plain_on_card(dtype):
         want = ops.paged_attention_quant(args[0], kq, ks, vq, vs, *args[3:],
                                          use_kernel=False)
         torch.testing.assert_close(got.float(), want.float(), **tol)
+    # one long row (at least 4 spans) beside short ones; each row alone
+    # equals its row in the batch, bit for bit, on both kernels
+    q, k, v, table, lengths = make_pool((3, 8, 2, 64, 16, 24), seed=9)
+    lengths[:] = [24 * 16, 5, 0]
+    args = [t(x).to(dev) for x in (q, k, v, table, lengths)]
+    args[:3] = [a.to(dtype) for a in args[:3]]
+    assert tpa.split_plan(3, 8, 2, 64, 16, 24,
+                          tpa.split_tokens()).max_splits >= 4
+    kq, ks = tref.quantize_pages(args[1])
+    vq, vs = tref.quantize_pages(args[2])
+    calls = {
+        "plain pool": lambda x, tb_, ln: ops.paged_attention(
+            x, args[1], args[2], tb_, ln),
+        "int8 pool": lambda x, tb_, ln: ops.paged_attention_quant(
+            x, kq, ks, vq, vs, tb_, ln)}
+    for name, call in calls.items():
+        full = call(args[0], args[3], args[4])
+        for r in range(3):
+            alone = call(args[0][r:r + 1], args[3][r:r + 1], args[4][r:r + 1])
+            assert torch.equal(alone[0], full[r]), (name, r)
+        assert not full[2].any(), name
+    got = ops.paged_attention(*args)
+    want = ops.paged_attention(*args, use_kernel=False)
+    torch.testing.assert_close(got[:2].float(), want[:2].float(), **tol)
 
 
 def test_decode_attention_ref_matches_reference():
