@@ -41,14 +41,15 @@ failed check:
 6. the flash-attention kernels (forward, and backward through autograd)
    against their plain version: phi3 heads (32/32, D 96) at the training
    shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128), zamba2's
-   shared block (32/32, D 80) and a D 64 shape, a ragged T 200 and
-   Tq < Tk, float32 (CUDA-core route) and bfloat16 (tensor-core route:
+   shared block (32/32, D 80) and a D 64 shape, a ragged T 200, Tq < Tk
+   and non-causal Tq > Tk, float32 (CUDA-core route) and bfloat16
+   (tensor-core route:
    wgmma fed by TMA), with the float32 gradients also held against a
    float64 computation; the bf16 kernels' registers, spills and shared
    memory (ptxas) and their HGMMA / UTMALDG counts (cuobjdump -sass), none
    without HGMMA; two bf16 forward and backward launches at phi3's
    training shape bit-identical; the kernel path refuses prefix_len != 0
-   and Tq > Tk; then forward and backward times at both training shapes
+   and causal Tq > Tk; then forward and backward times at both training shapes
    (B 4, T 512, bf16: phi3 heads, and zamba2's shared block at D 80,
    recorded under ``at_head_dim_80``) beside their bounds, the plain
    version's and ``scaled_dot_product_attention``'s pinned to its flash
@@ -70,11 +71,15 @@ failed check:
 10. the WKV6 and SSD scan kernels (forward, and backward through
    autograd) against their plain versions at rwkv6-3b's training shape
    (B 4, T 512, 40 heads of 64) and zamba2-2.7b's (80 heads, P = N = 64)
-   and a ragged T 200, zero and non-zero initial state, float32 and
-   bfloat16, the float32 gradients also held against a float64
-   computation, a repeated run bit-identical; then forward and backward
-   times at the training shapes beside their bounds and the plain
-   versions';
+   and a ragged T 200 (SSD also odd P 16 / N 8 at T 77, and T 64, one
+   chunk), zero and non-zero initial state, float32 and bfloat16, the
+   float32 gradients also held against a float64 computation, the bf16
+   SSD results also against the plain version on float32 casts (1%), a
+   repeated run bit-identical; the SSD kernels' registers and spills;
+   then forward and backward times at the training shapes beside their
+   bounds and the plain versions', the SSD kernels' CUDA launches per
+   call from a device trace (as ``mamba2_ssd.CUDA_LAUNCHES`` plans them)
+   and their time gates (forward <= 0.100 ms, backward <= 0.300 ms);
 11. rwkv6-3b: a full-depth (32 layers) bf16 prefill through
    ``make_prefill_step`` (one WKV6 launch per layer, no plain scan), the
    float32 forward through the kernels against the plain path, then
@@ -184,8 +189,20 @@ SCAN_CASES = {   # the first of each kind is its training shape
     "wkv6": {"rwkv6-3b B=4 T=512 (H=40, D=64)": (4, 512, 40, 64),
              "rwkv6-3b T=200": (2, 200, 40, 64)},
     "ssd": {"zamba2-2.7b B=4 T=512 (H=80, P=N=64)": (4, 512, 80, 64, 64),
-            "zamba2-2.7b T=200": (2, 200, 80, 64, 64)},
+            "zamba2-2.7b T=200": (2, 200, 80, 64, 64),
+            # odd P and N (zero-padded in the kernel), a ragged last chunk
+            "odd P=16 N=8 T=77": (1, 77, 3, 16, 8),
+            "one chunk T=64": (2, 64, 4, 64, 64)},
 }
+# the bf16 SSD kernels against the plain version on the same inputs cast
+# to float32: y and the final state within SSD_TIGHT_REL of a value plus
+# SSD_TIGHT_REL of its (batch row, head)'s rms, each gradient within
+# SSD_TIGHT_REL of its largest magnitude (bf16 outputs round at 2^-9)
+SSD_TIGHT_REL = 1e-2
+# the SSD kernels' times at zamba2-2.7b's training shape (bf16): gates,
+# checked after every time is printed, and goals, reported
+SSD_GATE_MS = {"mamba2_ssd_fwd": 0.100, "mamba2_ssd_bwd": 0.300}
+SSD_GOAL_MS = {"mamba2_ssd_fwd": 0.045, "mamba2_ssd_bwd": 0.120}
 # phases 11-12: the recurrent families at published width; training cuts
 # the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
 FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6}, batch=4, seq=512,
@@ -859,10 +876,10 @@ def flash_inputs(b, tq, tk, hq, hkv, d, dtype, seed=SEED):
     return mk(b, tq, hq, d), mk(b, tk, hkv, d), mk(b, tk, hkv, d), mk(b, tq, hq, d)
 
 
-def flash_grads(q, k, v, dout, use_kernel):
+def flash_grads(q, k, v, dout, use_kernel, causal=True):
     """(out, dq, dk, dv) through ops.flash_attention and autograd."""
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
-    out = ops.flash_attention(q, k, v, use_kernel=use_kernel)
+    out = ops.flash_attention(q, k, v, causal=causal, use_kernel=use_kernel)
     return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
 
 
@@ -966,7 +983,11 @@ def phase6() -> dict:
         "zamba2-2.7b T=200": (2, 200, 200, 32, 32, 80),
         # whisper's head dim, the bf16 route's fourth instantiation
         "D=64 T=200": (2, 200, 200, 8, 8, 64),
+        # non-causal Tq > Tk (whisper's cross-attention: more decoder rows
+        # than encoder frames)
+        "non-causal Tq=64 > Tk=32": (2, 64, 32, 8, 8, 64),
     }
+    non_causal = {"non-causal Tq=64 > Tk=32"}
     say("  bf16 route (wgmma + TMA) build report:")
     sass = flash_sass()
     errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
@@ -975,9 +996,10 @@ def phase6() -> dict:
             tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
             bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
             tag = f"{label} {str(dtype)[6:]}"
+            causal = label not in non_causal
             q, k, v, dout = flash_inputs(*shape, dtype)
-            got = flash_grads(q, k, v, dout, None)
-            want = flash_grads(q, k, v, dout, False)
+            got = flash_grads(q, k, v, dout, None, causal)
+            want = flash_grads(q, k, v, dout, False, causal)
             errs["flash_attention_fwd"] = max(
                 errs["flash_attention_fwd"],
                 check_close(f"flash fwd {tag}", got[0], want[0], **tol))
@@ -987,7 +1009,7 @@ def phase6() -> dict:
                     check_close(f"flash bwd {name} {tag}", g, w, **bwd_tol))
             if dtype == f32:
                 exact = flash_grads(q.double(), k.double(), v.double(),
-                                    dout.double(), False)
+                                    dout.double(), False, causal)
                 dist = lambda xs: max((x.double() - e).abs().max().item()
                                       for x, e in zip(xs, exact[1:]))
                 kern_d, plain_d = dist(got[1:]), dist(want[1:])
@@ -1001,7 +1023,8 @@ def phase6() -> dict:
     q, k, v, _ = flash_inputs(1, 64, 32, 4, 4, 96, bf16)
     for what, call in (("prefix_len=4", lambda: ops.flash_attention(
                             q[:, :32], k, v, prefix_len=4)),
-                       ("Tq=64 > Tk=32", lambda: ops.flash_attention(q, k, v))):
+                       ("causal Tq=64 > Tk=32",
+                        lambda: ops.flash_attention(q, k, v))):
         try:
             call()
         except ValueError as e:
@@ -1173,6 +1196,75 @@ def scan_bound_ms(kind, shape, elem, backward) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def check_head_rms(name, got, want, head_dim):
+    """Raise unless |got - want| <= SSD_TIGHT_REL (|want| + the rms of want
+    over its (batch row, head)); return the largest error over that rms."""
+    g = got.float().movedim(head_dim, 1)
+    w = want.float().movedim(head_dim, 1)
+    g, w = g.reshape(*w.shape[:2], -1), w.reshape(*w.shape[:2], -1)
+    rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
+    err = (g - w).abs()
+    over = (err - SSD_TIGHT_REL * (w.abs() + rms)).max().item()
+    worst = (err / rms.clamp(min=1e-30)).max().item()
+    say(f"  {name}: max_abs_err / head rms = {worst:.3e} (limit {SSD_TIGHT_REL} "
+        f"of a value + {SSD_TIGHT_REL} x head rms)")
+    if not torch.isfinite(got).all() or over > 0:
+        raise AssertionError(f"{name}: the bf16 kernel is farther than "
+                             f"{SSD_TIGHT_REL} from the float32 plain version")
+    return worst
+
+
+def ssd_tight(tag, ins, dy, got) -> None:
+    """The bf16 SSD kernels' results against the plain version run on the
+    same inputs (and dy) cast to float32."""
+    ins32 = [None if x is None else x.float() for x in ins]
+    want = scan_grads("ssd", ins32, dy.float(), False)
+    check_head_rms(f"ssd y {tag} vs float32 plain", got[0], want[0], 2)
+    check_head_rms(f"ssd final state {tag} vs float32 plain", got[1], want[1], 1)
+    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dstate"), got[2:],
+                          want[2:]):
+        check_scaled(f"ssd {name} {tag} vs float32 plain", g, w, SSD_TIGHT_REL)
+
+
+def ssd_ptxas() -> dict:
+    """Registers and spills of the SSD kernels, from this run's build."""
+    log = _build.build_log.get("mamba2_ssd")
+    if log is None:
+        raise AssertionError("no ptxas report: mamba2_ssd.cu was not built by "
+                             "this run (delete build/repro_torch_kernels)")
+    report = ptxas_report(log)
+    for key, entry in report.items():
+        say(f"  ptxas {key}: {entry.get('registers')} registers, spill stores "
+            f"{entry.get('spill_stores')} B / loads {entry.get('spill_loads')} B")
+    return report
+
+
+def ssd_traces() -> dict:
+    """The SSD kernels' device time and CUDA launches per call at
+    zamba2-2.7b's training shape (bf16, as the training step calls them),
+    from ``torch.profiler`` traces."""
+    shape = next(iter(SCAN_CASES["ssd"].values()))
+    (x, dt, A, Bm, Cm, _), dy = scan_inputs("ssd", shape, torch.bfloat16, False)
+    _, _, ckpt = ssd.ssd_fwd(x, dt, A, Bm, Cm, save=True)
+    calls = {"mamba2_ssd_fwd": lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, save=True),
+             "mamba2_ssd_bwd": lambda: ssd.ssd_bwd(x, dt, A, Bm, Cm, ckpt, dy)}
+    return {name: device_time(fn, reps=20, traces=3)._asdict()
+            for name, fn in calls.items()}
+
+
+def ssd_traces_fresh() -> dict:
+    """:func:`ssd_traces` in a child process of this script: after the
+    training phases the profiler of this process has come back with no
+    device records at all."""
+    out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                          "--ssd-traces"], capture_output=True, text=True,
+                         timeout=600, cwd=ROOT)
+    if out.returncode:
+        raise AssertionError(f"the SSD trace process failed:\n{out.stdout}"
+                             f"\n{out.stderr}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
 def phase10() -> dict:
     say("== phase 10: the WKV6 and SSD scan kernels, forward and backward, "
         "against their plain versions")
@@ -1204,6 +1296,8 @@ def phase10() -> dict:
                 if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
                     raise AssertionError(f"{kind} {tag}: a repeated run gave "
                                          "other bits")
+                if kind == "ssd" and dtype == bf16:
+                    ssd_tight(tag, ins, dy, got)
                 if dtype == f32:
                     exact = scan_grads(kind, [None if x is None else x.double()
                                               for x in ins], dy.double(), False)
@@ -1227,8 +1321,14 @@ def phase10() -> dict:
     torch.cuda.synchronize()
     release()
 
+    say("  SSD kernels' build report (P and N padded to 64: one "
+        "instantiation per dtype):")
+    ssd_regs = ssd_ptxas()
+
     # times at the training shapes, bf16, as the training step calls them
     rec = {}
+    failures = []
+    traces = ssd_traces_fresh()
     for kind, shapes in cases.items():
         label, shape = next(iter(shapes.items()))
         ins, dy = scan_inputs(kind, shape, bf16, False)
@@ -1273,9 +1373,31 @@ def phase10() -> dict:
                                   ("B", "T", "H", "P", "N"), shape),
                               dtype="bfloat16"),
             }
-            say(f"  {name} at the training shape ({label}): kernel {ms:.4f} "
-                f"ms, plain {plain_ms:.4f} ms, bound {bound:.4f} ms "
+            say(f"  {name} at the training shape ({label}): kernel {ms:.5f} "
+                f"ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
                 f"({bound_by}); no single PyTorch call computes it")
+            if kind == "ssd":
+                # CUDA launches per wrapper call, from a device trace
+                dev = DeviceTime(**traces[name])
+                planned = ssd.CUDA_LAUNCHES["bwd" if backward else "fwd"]
+                say(f"    device time {dev.ms:.5f} ms (traces "
+                    f"{[round(v, 5) for v in dev.traces_ms]}, a fresh process); "
+                    f"CUDA launches per call {dev.launches:g}, planned {planned}")
+                if dev.launches != planned:
+                    failures.append(f"{name}: {dev.launches:g} CUDA launches per "
+                                    f"call, the wrapper plans {planned}")
+                gate, goal = SSD_GATE_MS[name], SSD_GOAL_MS[name]
+                say(f"    gate <= {gate} ms: {'held' if ms <= gate else 'MISSED'}"
+                    f"; goal <= {goal} ms (reported): "
+                    f"{'met' if ms <= goal else 'not met'}")
+                if not ms <= gate:
+                    failures.append(f"{name}: {ms:.5f} ms over its {gate} ms gate")
+                rec[name].update(
+                    device_ms=dev.ms, cuda_launches_per_call=dev.launches,
+                    gate_ms=gate, goal_ms=goal, design="chunked mma.sync",
+                    ptxas={k: v for k, v in ssd_regs.items()
+                           if ("bwd" if backward else "fwd") in k
+                           or (backward and "finish" in k)})
         rec[names_[1]]["note"] = (
             "the reference has no backward kernel: JAX differentiates the "
             "chunked jnp version, whose TPU kernel the forward replaces; "
@@ -1283,6 +1405,8 @@ def phase10() -> dict:
             "magnitude")
         del ins, dy, ckpt, plain_y, leaves, wrt
         release()
+    if failures:
+        raise AssertionError("; ".join(failures))
     return rec
 
 
@@ -1760,6 +1884,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--ssd-traces"]:   # phase 10's child process
+        print(json.dumps(ssd_traces()))
+        return 0
 
     say("== phase 0: device and build")
     smi = subprocess.run(

@@ -48,7 +48,7 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "mamba2_ssd": {
         "repro_ssd_fwd": [_I] + [_P] * 9 + [_I] * 5 + [_P],
-        "repro_ssd_bwd": [_I] + [_P] * 13 + [_I] * 5 + [_P],
+        "repro_ssd_bwd": [_I] + [_P] * 16 + [_I] * 6 + [_P],
     },
 }
 

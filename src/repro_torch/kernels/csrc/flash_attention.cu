@@ -1327,9 +1327,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 // launchers
 // ---------------------------------------------------------------------- //
 
-bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d) {
-  return b < 1 || tq < 1 || tk < tq || hkv < 1 || hq % hkv != 0 || d % 8 != 0 ||
-         d < 8 || d > 256;
+// Tq > Tk is refused only when causal: the causal offset Tk - Tq must be >= 0
+bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int causal) {
+  return b < 1 || tq < 1 || tk < 1 || (causal && tk < tq) || hkv < 1 || hq % hkv != 0 ||
+         d % 8 != 0 || d < 8 || d > 256;
 }
 
 // opt in to more than 48 KB of dynamic shared memory where needed
@@ -1554,7 +1555,7 @@ extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, void* lse, int b, int tq,
                                int tk, int hq, int hkv, int d, float scale,
                                int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d) || (dtype != 0 && dtype != 1)) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, causal) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1576,7 +1577,7 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
                                const void* lse, void* delta, void* dq, void* dk,
                                void* dv, int b, int tq, int tk, int hq, int hkv,
                                int d, float scale, int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d) || (dtype != 0 && dtype != 1)) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, causal) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -37,7 +37,8 @@ BF16_HEAD_DIMS = (64, 80, 96, 128)
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           causal: bool) -> None:
     """Raise on anything the kernels do not take: dtypes and shapes first
     (so a CPU tensor shows them too), then the device and the layout."""
     if q.dtype not in _DTYPE_CODE:
@@ -58,7 +59,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
         raise ValueError(f"head dim {d}: the bfloat16 kernels take head dims "
                          f"{BF16_HEAD_DIMS}")
-    if tq < 1 or tq > tk:
+    if tq < 1 or tk < 1:
+        raise ValueError(f"Tq={tq} and Tk={tk} must be >= 1")
+    if causal and tq > tk:
         raise ValueError(f"Tq={tq} > Tk={tk}: the kernel's causal offset "
                          "Tk - Tq must be >= 0 (so is the reference's)")
     for t in (q, k, v):
@@ -92,7 +95,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward launch: ``(out (B, Tq, Hq, D) in q's dtype, lse (B, Hq,
     Tq) f32)``."""
-    _check(q, k, v)
+    _check(q, k, v, causal)
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -115,7 +118,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backward pass (three kernel launches: delta = dO . O, dQ, and
     dK/dV): ``(dq, dk, dv)`` in the inputs' dtype."""
-    _check(q, k, v)
+    _check(q, k, v, causal)
     b, tq, hq, d = q.shape
     tk, hkv = k.shape[1], k.shape[2]
     for name, t in (("out", out), ("dout", dout)):

@@ -322,3 +322,133 @@ def mamba2_ref(
         s = decay[..., None, None] * s + upd
         outs.append(torch.einsum("bhpn,bn->bhp", s, ct))
     return torch.stack(outs, 1).to(x.dtype), s
+
+
+def _ssd_chunks(x, dt, Bm, Cm, chunk):
+    """x, dt, Bm, Cm zero-padded to whole chunks, in f32 (or wider), as
+    (B, nc, chunk, ...) views."""
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    acc = torch.promote_types(x.dtype, torch.float32)
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+
+    def padded(v, *tail):
+        v = v.to(acc)
+        if pad:
+            v = torch.cat([v, v.new_zeros((b, pad) + tuple(tail))], 1)
+        return v.reshape((b, nc, chunk) + tuple(tail))
+
+    return (padded(x, h, p), padded(dt, h), padded(Bm, n), padded(Cm, n),
+            nc, acc)
+
+
+def _ssd_decays(A, dtc, mask):
+    """Per chunk: L (B, c, H) the inclusive sums of A dt, E (B, i, j, H) =
+    e^{L_i - L_j} below the diagonal (masked before the exp, so no exponent
+    is positive), w_j = e^{L_last - L_j}, e^{L_i} and e^{L_last}."""
+    L = torch.cumsum(A.to(dtc.dtype)[None, None, :] * dtc, dim=1)
+    seg = L[:, :, None, :] - L[:, None, :, :]
+    E = torch.exp(torch.where(mask[None, :, :, None], seg,
+                              torch.full((), float("-inf"), dtype=L.dtype)))
+    last = L[:, -1]
+    return L, E, torch.exp(last[:, None, :] - L), torch.exp(L), torch.exp(last)
+
+
+def mamba2_ssd_chunked(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, state: Optional[torch.Tensor] = None, chunk: int = 64,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The SSD kernels' forward in their chunk form, written plainly:
+    ``(y in x's dtype, final state, chunk-start states (B, H, nc, P, N))``.
+    Per chunk, with L_i the inclusive sum of A dt, u_j = dt_j x_j and S0
+    the chunk's start state::
+
+        M_ij = (C_i . B_j) e^{L_i - L_j} [j <= i]
+        y_i  = sum_j M_ij u_j + e^{L_i} S0 C_i
+        S1   = e^{L_last} S0 + sum_j e^{L_last - L_j} u_j B_j^T
+    """
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    xs, dts, bs, cs, nc, acc = _ssd_chunks(x, dt, Bm, Cm, chunk)
+    S = (torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+         if state is None else state.to(acc))
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    ys, starts = [], []
+    for c in range(nc):
+        xc, dtc, bc, cc = xs[:, c], dts[:, c], bs[:, c], cs[:, c]
+        _, E, w, eL, eLl = _ssd_decays(A, dtc, mask)
+        starts.append(S)
+        M = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * E
+        y = (torch.einsum("bijh,bjh,bjhp->bihp", M, dtc, xc)
+             + eL[..., None] * torch.einsum("bin,bhpn->bihp", cc, S))
+        S = (eLl[..., None, None] * S
+             + torch.einsum("bjhp,bjh,bjn->bhpn", xc, w * dtc, bc))
+        ys.append(y)
+    y = torch.stack(ys, 1).reshape(b, nc * chunk, h, p)[:, :t]
+    return y.to(x.dtype), S, torch.stack(starts, 2)
+
+
+def mamba2_ssd_chunked_grads(
+    x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+    Cm: torch.Tensor, starts: torch.Tensor, dy: torch.Tensor, chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """The SSD backward kernel's arithmetic, written plainly, from the
+    chunk-start states of :func:`mamba2_ssd_chunked` and dy (no gradient
+    on the final state): ``(dx, ddt, dA, dB, dC, dstate)``, all in f32.
+
+    The chunks run in reverse with dS1, the gradient on the chunk's end
+    state (0 after the last).  With dM_ij = dt_j (dy_i . x_j) [j <= i] and
+    Z = dM * M (off its diagonal, where the two sums below cancel)::
+
+        du_j  = sum_i M_ij dy_i + w_j dS1 B_j            dx = dt du
+        dB_j  = sum_i (dM E)_ij C_i + w_j dt_j dS1^T x_j
+        dC_i  = sum_j (dM E)_ij B_j + e^{L_i} S0^T dy_i
+        dS0   = e^{L_last} dS1 + sum_i e^{L_i} dy_i C_i^T
+        da_k  = sum_{i >= k} (rowZ_i - colZ_i + r_i) + sum_{j < k} q_j
+                + e^{L_last} <dS1, S0>
+        ddt_k = x_k . du_k + A da_k,    dA = sum_k dt_k da_k
+
+    with r_i = e^{L_i} dy_i . (S0 C_i) and q_j = w_j dt_j x_j . (dS1 B_j).
+    No decay is divided out, and no sum takes a difference of the
+    chunk's whole-state terms."""
+    b, t, h, p = x.shape
+    n = Bm.shape[-1]
+    xs, dts, bs, cs, nc, acc = _ssd_chunks(x, dt, Bm, Cm, chunk)
+    dys = _ssd_chunks(dy, dt, Bm, Cm, chunk)[0]
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=x.device))
+    off = mask & ~torch.eye(chunk, dtype=torch.bool, device=x.device)
+    dS = torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+    dA = torch.zeros((h,), dtype=acc, device=x.device)
+    dxs, ddts, dBs, dCs = [], [], [], []
+    for c in reversed(range(nc)):
+        xc, dtc, bc, cc, dyc = xs[:, c], dts[:, c], bs[:, c], cs[:, c], dys[:, c]
+        S0 = starts[:, :, c].to(acc)
+        _, E, w, eL, eLl = _ssd_decays(A, dtc, mask)
+        M = torch.einsum("bin,bjn->bij", cc, bc)[..., None] * E
+        dM = (torch.einsum("bihp,bjhp->bijh", dyc, xc) * dtc[:, None]
+              * mask[None, :, :, None])
+        dME = dM * E
+        Z = dM * M * off[None, :, :, None]
+        Q = torch.einsum("bjn,bhpn->bjhp", bc, dS)
+        du = torch.einsum("bijh,bihp->bjhp", M, dyc) + w[..., None] * Q
+        q = w * dtc * (xc * Q).sum(-1)
+        YS = torch.einsum("bihp,bhpn->bihn", dyc, S0)
+        r = eL * (YS * cc[:, :, None, :]).sum(-1)
+        dBs.append(torch.einsum("bijh,bin->bjn", dME, cc)
+                   + torch.einsum("bjh,bjhp,bhpn->bjn", w * dtc, xc, dS))
+        dCs.append(torch.einsum("bijh,bjn->bin", dME, bc)
+                   + torch.einsum("bih,bihn->bin", eL, YS))
+        v = Z.sum(2) - Z.sum(1) + r
+        da = (torch.flip(torch.cumsum(torch.flip(v, (1,)), 1), (1,))
+              + torch.cumsum(q, 1) - q
+              + (eLl * (dS * S0).sum((-1, -2)))[:, None])
+        dxs.append(dtc[..., None] * du)
+        ddts.append((xc * du).sum(-1) + A.to(acc) * da)
+        dA = dA + (dtc * da).sum((0, 1))
+        dS = (eLl[..., None, None] * dS
+              + torch.einsum("bihp,bih,bin->bhpn", dyc, eL, cc))
+    cat = lambda vs: torch.cat(vs[::-1], 1)[:, :t]
+    return cat(dxs), cat(ddts), dA, cat(dBs), cat(dCs), dS

@@ -354,6 +354,8 @@ FLASH_CASES = [
     pytest.param((1, 24, 40, 4, 1, 8, True), id="gqa-offset"),
     pytest.param((1, 16, 16, 2, 2, 8, False), id="full"),
     pytest.param((2, 33, 33, 3, 3, 8, True), id="ragged"),
+    # non-causal with more query rows than keys (cross-attention)
+    pytest.param((1, 24, 16, 2, 2, 8, False), id="cross-tq-over-tk"),
 ]
 
 
@@ -448,6 +450,26 @@ def test_flash_kernel_path_refuses_what_it_has_no_semantics_for():
         tfa.flash_attention_fwd(t(q), t(k), t(v))
     with pytest.raises(ValueError, match="CUDA"):
         txp.xor_reduce(torch.zeros((2, 1, 128), dtype=torch.int32))
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_kernel_refuses_tq_over_tk_only_when_causal(which):
+    """Tq > Tk has no causal offset, so only a causal call is refused for
+    it; a non-causal one gets past the shape checks to the CUDA-only
+    refusal (on the card it runs: chip_smoke.py phase 6)."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x) for x in flash_inputs((1, 32, 16, 2, 2, 8, False),
+                                                 seed=16))
+    lse = torch.zeros((1, 2, 32), dtype=torch.float32)
+    call = ((lambda causal: tfa.flash_attention_fwd(q, k, v, causal))
+            if which == "fwd" else
+            (lambda causal: tfa.flash_attention_bwd(q, k, v, q, lse, dout,
+                                                    causal)))
+    with pytest.raises(ValueError, match=r"Tq=32 > Tk=16"):
+        call(True)
+    with pytest.raises(ValueError, match="CUDA"):
+        call(False)
 
 
 @pytest.mark.parametrize("d", [72, 256])
