@@ -71,15 +71,18 @@ failed check:
 10. the WKV6 and SSD scan kernels (forward, and backward through
    autograd) against their plain versions at rwkv6-3b's training shape
    (B 4, T 512, 40 heads of 64) and zamba2-2.7b's (80 heads, P = N = 64)
-   and a ragged T 200 (SSD also odd P 16 / N 8 at T 77, and T 64, one
-   chunk), zero and non-zero initial state, float32 and bfloat16, the
-   float32 gradients also held against a float64 computation, the bf16
-   SSD results also against the plain version on float32 casts (1%), a
-   repeated run bit-identical; the SSD kernels' registers and spills;
-   then forward and backward times at the training shapes beside their
-   bounds and the plain versions', the SSD kernels' CUDA launches per
-   call from a device trace (as ``mamba2_ssd.CUDA_LAUNCHES`` plans them)
-   and their time gates (forward <= 0.100 ms, backward <= 0.300 ms);
+   and a ragged T 200 (WKV6 also D 16 at T 77, T 64 (one chunk) and T 1;
+   SSD also odd P 16 / N 8 at T 77, and T 64), zero and non-zero initial
+   state, float32 and bfloat16, the float32 gradients also held against a
+   float64 computation, the bf16 results also against the plain version
+   on float32 casts (1%), a repeated run bit-identical; the WKV6 kernels
+   also below the model's decay clip (w down to 1e-20) against the
+   sequential oracle; both sources' registers and spills; then forward
+   and backward times at the training shapes beside their bounds and the
+   plain versions', each kernel's CUDA launches per call from a device
+   trace (as ``CUDA_LAUNCHES`` of its wrapper plans them) and their time
+   gates (SSD forward <= 0.100 ms, backward <= 0.300 ms; WKV6 <= 0.150 /
+   0.350 ms);
 11. rwkv6-3b: a full-depth (32 layers) bf16 prefill through
    ``make_prefill_step`` (one WKV6 launch per layer, no plain scan), the
    float32 forward through the kernels against the plain path, then
@@ -187,22 +190,35 @@ SCAN_BWD_F32_REL = 1e-4
 SCAN_F64_REL = 1e-5
 SCAN_CASES = {   # the first of each kind is its training shape
     "wkv6": {"rwkv6-3b B=4 T=512 (H=40, D=64)": (4, 512, 40, 64),
-             "rwkv6-3b T=200": (2, 200, 40, 64)},
+             "rwkv6-3b T=200": (2, 200, 40, 64),
+             # a head under 64 (zero-padded in the kernel), a ragged chunk
+             "D=16 T=77": (1, 77, 3, 16),
+             "one chunk T=64": (2, 64, 4, 64),
+             "T=1": (1, 1, 2, 64)},
     "ssd": {"zamba2-2.7b B=4 T=512 (H=80, P=N=64)": (4, 512, 80, 64, 64),
             "zamba2-2.7b T=200": (2, 200, 80, 64, 64),
             # odd P and N (zero-padded in the kernel), a ragged last chunk
             "odd P=16 N=8 T=77": (1, 77, 3, 16, 8),
             "one chunk T=64": (2, 64, 4, 64, 64)},
 }
-# the bf16 SSD kernels against the plain version on the same inputs cast
-# to float32: y and the final state within SSD_TIGHT_REL of a value plus
-# SSD_TIGHT_REL of its (batch row, head)'s rms, each gradient within
-# SSD_TIGHT_REL of its largest magnitude (bf16 outputs round at 2^-9)
-SSD_TIGHT_REL = 1e-2
+# the bf16 scan kernels (SSD and WKV6) against the plain version on the
+# same inputs cast to float32: y and the final state within SCAN_TIGHT_REL
+# of a value plus SCAN_TIGHT_REL of its (batch row, head)'s rms, each
+# gradient within SCAN_TIGHT_REL of its largest magnitude (bf16 outputs
+# round at 2^-9)
+SCAN_TIGHT_REL = 1e-2
 # the SSD kernels' times at zamba2-2.7b's training shape (bf16): gates,
 # checked after every time is printed, and goals, reported
 SSD_GATE_MS = {"mamba2_ssd_fwd": 0.100, "mamba2_ssd_bwd": 0.300}
 SSD_GOAL_MS = {"mamba2_ssd_fwd": 0.045, "mamba2_ssd_bwd": 0.120}
+# the WKV6 kernels' times at rwkv6-3b's training shape (bf16, the forward
+# saving its chunk-start states): gates and goals, as the SSD's
+WKV6_GATE_MS = {"wkv6_fwd": 0.150, "wkv6_bwd": 0.350}
+WKV6_GOAL_MS = {"wkv6_fwd": 0.060, "wkv6_bwd": 0.150}
+# phase 10's case below the model's decay clip: w down to 1e-20 on every
+# other channel, against the sequential oracle (the chunked plain version
+# overflows there)
+BELOW_CLIP_SHAPE = (1, 77, 2, 64)
 # phases 11-12: the recurrent families at published width; training cuts
 # the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
 FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6}, batch=4, seq=512,
@@ -269,12 +285,24 @@ def check_split(name, got, want, rows):
     return worst
 
 
+# an upper bound on the SM clock (Hz): a sleep of s seconds spins s x this
+# many cycles, so it lasts at least s at any clock
+SLEEP_HZ = 2.0e9
+
+
 def time_ms(fn, iters=100, warmup=10) -> float:
+    """Mean ms of ``fn`` by CUDA events over ``iters`` calls.  The calls
+    are queued behind a sleep on the card that outlasts twice their launch
+    time on the host (taken over the warm-up), so that the events time the
+    card's work, not the host's rate of launching it."""
+    t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
+    host_s = (time.perf_counter() - t0) / warmup
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2 * iters * host_s + 1e-3, 0.5) * SLEEP_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -1197,40 +1225,79 @@ def scan_bound_ms(kind, shape, elem, backward) -> tuple:
 
 
 def check_head_rms(name, got, want, head_dim):
-    """Raise unless |got - want| <= SSD_TIGHT_REL (|want| + the rms of want
+    """Raise unless |got - want| <= SCAN_TIGHT_REL (|want| + the rms of want
     over its (batch row, head)); return the largest error over that rms."""
     g = got.float().movedim(head_dim, 1)
     w = want.float().movedim(head_dim, 1)
     g, w = g.reshape(*w.shape[:2], -1), w.reshape(*w.shape[:2], -1)
     rms = w.pow(2).mean(dim=-1, keepdim=True).sqrt()
     err = (g - w).abs()
-    over = (err - SSD_TIGHT_REL * (w.abs() + rms)).max().item()
+    over = (err - SCAN_TIGHT_REL * (w.abs() + rms)).max().item()
     worst = (err / rms.clamp(min=1e-30)).max().item()
-    say(f"  {name}: max_abs_err / head rms = {worst:.3e} (limit {SSD_TIGHT_REL} "
-        f"of a value + {SSD_TIGHT_REL} x head rms)")
+    say(f"  {name}: max_abs_err / head rms = {worst:.3e} (limit {SCAN_TIGHT_REL} "
+        f"of a value + {SCAN_TIGHT_REL} x head rms)")
     if not torch.isfinite(got).all() or over > 0:
         raise AssertionError(f"{name}: the bf16 kernel is farther than "
-                             f"{SSD_TIGHT_REL} from the float32 plain version")
+                             f"{SCAN_TIGHT_REL} from the float32 plain version")
     return worst
 
 
-def ssd_tight(tag, ins, dy, got) -> None:
-    """The bf16 SSD kernels' results against the plain version run on the
+SCAN_GRAD_NAMES = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
+                   "ssd": ("dx", "ddt", "dA", "dB", "dC", "dstate")}
+
+
+def scan_tight(kind, tag, ins, dy, got) -> None:
+    """A bf16 scan kernel's results against the plain version run on the
     same inputs (and dy) cast to float32."""
     ins32 = [None if x is None else x.float() for x in ins]
-    want = scan_grads("ssd", ins32, dy.float(), False)
-    check_head_rms(f"ssd y {tag} vs float32 plain", got[0], want[0], 2)
-    check_head_rms(f"ssd final state {tag} vs float32 plain", got[1], want[1], 1)
-    for name, g, w in zip(("dx", "ddt", "dA", "dB", "dC", "dstate"), got[2:],
-                          want[2:]):
-        check_scaled(f"ssd {name} {tag} vs float32 plain", g, w, SSD_TIGHT_REL)
+    want = scan_grads(kind, ins32, dy.float(), False)
+    check_head_rms(f"{kind} y {tag} vs float32 plain", got[0], want[0], 2)
+    check_head_rms(f"{kind} final state {tag} vs float32 plain", got[1],
+                   want[1], 1)
+    for name, g, w in zip(SCAN_GRAD_NAMES[kind], got[2:], want[2:]):
+        check_scaled(f"{kind} {name} {tag} vs float32 plain", g, w,
+                     SCAN_TIGHT_REL)
 
 
-def ssd_ptxas() -> dict:
-    """Registers and spills of the SSD kernels, from this run's build."""
-    log = _build.build_log.get("mamba2_ssd")
+def below_clip(dtype) -> float:
+    """The WKV6 kernels where every other channel's decay is drawn as
+    e^{-46 U}, U uniform in [0, 1) (down to 1e-20, far below the model's
+    clip e^-e), against the sequential oracle ``ref.rwkv6_ref`` and its
+    autograd (the chunked plain version exponentiates before its mask and
+    overflows there): outputs at the scans' tolerance, gradients relative
+    to their largest magnitude, dw as w * dw (the gradient in log w: dw's
+    own rounding grows as 1/w); returns the largest gradient error."""
+    (r, k, v, w, u, s0), dy = scan_inputs("wkv6", BELOW_CLIP_SHAPE, dtype, True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 5)
+    tiny = torch.exp(-46.0 * torch.rand(BELOW_CLIP_SHAPE, generator=gen,
+                                        device=DEVICE))
+    w = w.clone()
+    w[..., ::2] = tiny[..., ::2]
+    ins = (r, k, v, w, u, s0)
+    got = scan_grads("wkv6", ins, dy, None)
+    leaves = [x.detach().float().requires_grad_() for x in ins]
+    y, s = ref.rwkv6_ref(*leaves)
+    want = (y.detach(), s.detach()) + torch.autograd.grad(y, leaves, dy.float())
+    tag = f"below the clip (w >= {w.min().item():.1e}) {str(dtype)[6:]}"
+    tol = SCAN_F32_TOL if dtype == torch.float32 else SCAN_BF16_TOL
+    rel = SCAN_BWD_F32_REL if dtype == torch.float32 else SCAN_BF16_TOL["rtol"]
+    check_close(f"wkv6 y {tag} vs sequential", got[0], want[0], **tol)
+    check_close(f"wkv6 final state {tag} vs sequential", got[1], want[1], **tol)
+    worst = 0.0
+    for name, g, wg in zip(SCAN_GRAD_NAMES["wkv6"], got[2:], want[2:]):
+        if name == "dw":
+            name, g, wg = "w*dw", g * w, wg * w
+        worst = max(worst, check_scaled(f"wkv6 {name} {tag} vs sequential",
+                                        g, wg, rel))
+    return worst
+
+
+def scan_ptxas(name: str) -> dict:
+    """Registers and spills of a scan source's kernels, from this run's
+    build."""
+    log = _build.build_log.get(name)
     if log is None:
-        raise AssertionError("no ptxas report: mamba2_ssd.cu was not built by "
+        raise AssertionError(f"no ptxas report: {name}.cu was not built by "
                              "this run (delete build/repro_torch_kernels)")
     report = ptxas_report(log)
     for key, entry in report.items():
@@ -1239,28 +1306,37 @@ def ssd_ptxas() -> dict:
     return report
 
 
-def ssd_traces() -> dict:
-    """The SSD kernels' device time and CUDA launches per call at
-    zamba2-2.7b's training shape (bf16, as the training step calls them),
-    from ``torch.profiler`` traces."""
+def scan_traces() -> dict:
+    """The scan kernels' device time and CUDA launches per call at
+    zamba2-2.7b's and rwkv6-3b's training shapes (bf16, as the training
+    step calls them), from ``torch.profiler`` traces."""
     shape = next(iter(SCAN_CASES["ssd"].values()))
     (x, dt, A, Bm, Cm, _), dy = scan_inputs("ssd", shape, torch.bfloat16, False)
     _, _, ckpt = ssd.ssd_fwd(x, dt, A, Bm, Cm, save=True)
     calls = {"mamba2_ssd_fwd": lambda: ssd.ssd_fwd(x, dt, A, Bm, Cm, save=True),
              "mamba2_ssd_bwd": lambda: ssd.ssd_bwd(x, dt, A, Bm, Cm, ckpt, dy)}
-    return {name: device_time(fn, reps=20, traces=3)._asdict()
-            for name, fn in calls.items()}
+    out = {name: device_time(fn, reps=20, traces=3)._asdict()
+           for name, fn in calls.items()}
+    shape = next(iter(SCAN_CASES["wkv6"].values()))
+    (r, k, v, w, u, _), dy = scan_inputs("wkv6", shape, torch.bfloat16, False)
+    uf = u.float()
+    _, _, ckpt = wkv.wkv6_fwd(r, k, v, w, uf, save=True)
+    calls = {"wkv6_fwd": lambda: wkv.wkv6_fwd(r, k, v, w, uf, save=True),
+             "wkv6_bwd": lambda: wkv.wkv6_bwd(r, k, v, w, uf, ckpt, dy)}
+    out.update({name: device_time(fn, reps=20, traces=3)._asdict()
+                for name, fn in calls.items()})
+    return out
 
 
-def ssd_traces_fresh() -> dict:
-    """:func:`ssd_traces` in a child process of this script: after the
+def scan_traces_fresh() -> dict:
+    """:func:`scan_traces` in a child process of this script: after the
     training phases the profiler of this process has come back with no
     device records at all."""
     out = subprocess.run([sys.executable, str(Path(__file__).resolve()),
-                          "--ssd-traces"], capture_output=True, text=True,
+                          "--scan-traces"], capture_output=True, text=True,
                          timeout=600, cwd=ROOT)
     if out.returncode:
-        raise AssertionError(f"the SSD trace process failed:\n{out.stdout}"
+        raise AssertionError(f"the scan trace process failed:\n{out.stdout}"
                              f"\n{out.stderr}")
     return json.loads(out.stdout.strip().splitlines()[-1])
 
@@ -1270,8 +1346,7 @@ def phase10() -> dict:
         "against their plain versions")
     f32, bf16 = torch.float32, torch.bfloat16
     cases = SCAN_CASES
-    names = {"wkv6": ("dr", "dk", "dv", "dw", "du", "dstate"),
-             "ssd": ("dx", "ddt", "dA", "dB", "dC", "dstate")}
+    names = SCAN_GRAD_NAMES
     errs = {}
     for kind, shapes in cases.items():
         fwd_err = bwd_err = 0.0
@@ -1296,14 +1371,16 @@ def phase10() -> dict:
                 if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
                     raise AssertionError(f"{kind} {tag}: a repeated run gave "
                                          "other bits")
-                if kind == "ssd" and dtype == bf16:
-                    ssd_tight(tag, ins, dy, got)
+                if dtype == bf16:
+                    scan_tight(kind, tag, ins, dy, got)
                 if dtype == f32:
                     exact = scan_grads(kind, [None if x is None else x.double()
                                               for x in ins], dy.double(), False)
                     for name, g, w, e in zip(gnames, got[2:], want[2:],
                                              exact[2:]):
-                        scale = e.abs().max().item()
+                        # (a gradient that is 0 everywhere, as dw at T 1
+                        # from a zero state, compares at scale 1e-30)
+                        scale = max(e.abs().max().item(), 1e-30)
                         kd = (g.double() - e).abs().max().item() / scale
                         pd = (w.double() - e).abs().max().item() / scale
                         say(f"    {name} distance to float64 (relative to "
@@ -1315,6 +1392,9 @@ def phase10() -> dict:
                                                  "float64")
                     del exact
                 del got, want, again
+        if kind == "wkv6":
+            for dtype in (f32, bf16):
+                bwd_err = max(bwd_err, below_clip(dtype))
         errs[kind] = (fwd_err, bwd_err)
         say(f"  {kind}: a repeated forward and backward gave the same bits "
             "at every case")
@@ -1323,12 +1403,22 @@ def phase10() -> dict:
 
     say("  SSD kernels' build report (P and N padded to 64: one "
         "instantiation per dtype):")
-    ssd_regs = ssd_ptxas()
+    regs = {"ssd": scan_ptxas("mamba2_ssd")}
+    say("  WKV6 kernels' build report (heads padded to 64: one instantiation "
+        "per dtype):")
+    regs["wkv6"] = scan_ptxas("wkv6")
+    lib = _build.library("wkv6")
+    occupancy = {"fwd": lib.repro_wkv6_blocks_per_sm(0),
+                 "bwd_state_part": lib.repro_wkv6_blocks_per_sm(1),
+                 "bwd_chunk": lib.repro_wkv6_blocks_per_sm(2)}
+    say(f"  WKV6 bf16 blocks per SM (occupancy): forward {occupancy['fwd']}, "
+        f"backward dG kernel {occupancy['bwd_state_part']}, chunk kernel "
+        f"{occupancy['bwd_chunk']}")
 
     # times at the training shapes, bf16, as the training step calls them
     rec = {}
     failures = []
-    traces = ssd_traces_fresh()
+    traces = scan_traces_fresh()
     for kind, shapes in cases.items():
         label, shape = next(iter(shapes.items()))
         ins, dy = scan_inputs(kind, shape, bf16, False)
@@ -1376,28 +1466,35 @@ def phase10() -> dict:
             say(f"  {name} at the training shape ({label}): kernel {ms:.5f} "
                 f"ms, plain {plain_ms:.5f} ms, bound {bound:.5f} ms "
                 f"({bound_by}); no single PyTorch call computes it")
-            if kind == "ssd":
-                # CUDA launches per wrapper call, from a device trace
-                dev = DeviceTime(**traces[name])
-                planned = ssd.CUDA_LAUNCHES["bwd" if backward else "fwd"]
-                say(f"    device time {dev.ms:.5f} ms (traces "
-                    f"{[round(v, 5) for v in dev.traces_ms]}, a fresh process); "
-                    f"CUDA launches per call {dev.launches:g}, planned {planned}")
-                if dev.launches != planned:
-                    failures.append(f"{name}: {dev.launches:g} CUDA launches per "
-                                    f"call, the wrapper plans {planned}")
-                gate, goal = SSD_GATE_MS[name], SSD_GOAL_MS[name]
-                say(f"    gate <= {gate} ms: {'held' if ms <= gate else 'MISSED'}"
-                    f"; goal <= {goal} ms (reported): "
-                    f"{'met' if ms <= goal else 'not met'}")
-                if not ms <= gate:
-                    failures.append(f"{name}: {ms:.5f} ms over its {gate} ms gate")
-                rec[name].update(
-                    device_ms=dev.ms, cuda_launches_per_call=dev.launches,
-                    gate_ms=gate, goal_ms=goal, design="chunked mma.sync",
-                    ptxas={k: v for k, v in ssd_regs.items()
-                           if ("bwd" if backward else "fwd") in k
-                           or (backward and "finish" in k)})
+            # CUDA launches per wrapper call, from a device trace
+            dev = DeviceTime(**traces[name])
+            mod = wkv if kind == "wkv6" else ssd
+            planned = mod.CUDA_LAUNCHES["bwd" if backward else "fwd"]
+            say(f"    device time {dev.ms:.5f} ms (traces "
+                f"{[round(v, 5) for v in dev.traces_ms]}, a fresh process); "
+                f"CUDA launches per call {dev.launches:g}, planned {planned}")
+            if dev.launches != planned:
+                failures.append(f"{name}: {dev.launches:g} CUDA launches per "
+                                f"call, the wrapper plans {planned}")
+            gates, goals = ((WKV6_GATE_MS, WKV6_GOAL_MS) if kind == "wkv6"
+                            else (SSD_GATE_MS, SSD_GOAL_MS))
+            gate, goal = gates[name], goals[name]
+            say(f"    gate <= {gate} ms: {'held' if ms <= gate else 'MISSED'}"
+                f"; goal <= {goal} ms (reported): "
+                f"{'met' if ms <= goal else 'not met'}")
+            if not ms <= gate:
+                failures.append(f"{name}: {ms:.5f} ms over its {gate} ms gate")
+            rec[name].update(
+                device_ms=dev.ms, cuda_launches_per_call=dev.launches,
+                gate_ms=gate, goal_ms=goal, design="chunked mma.sync",
+                ptxas={k: v for k, v in regs[kind].items()
+                       if ("bwd" if backward else "fwd") in k
+                       or (backward and "finish" in k)})
+            if kind == "wkv6":
+                rec[name]["blocks_per_sm"] = (
+                    {k: occupancy[k] for k in ("bwd_state_part", "bwd_chunk")}
+                    if backward else occupancy["fwd"])
+                rec[name]["plan"] = wkv.plan(*shape)
         rec[names_[1]]["note"] = (
             "the reference has no backward kernel: JAX differentiates the "
             "chunked jnp version, whose TPU kernel the forward replaces; "
@@ -1884,8 +1981,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--ssd-traces"]:   # phase 10's child process
-        print(json.dumps(ssd_traces()))
+    if sys.argv[1:] == ["--scan-traces"]:   # phase 10's child process
+        print(json.dumps(scan_traces()))
         return 0
 
     say("== phase 0: device and build")

@@ -44,7 +44,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "wkv6": {
         "repro_wkv6_fwd": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-        "repro_wkv6_bwd": [_I] + [_P] * 13 + [_I] * 4 + [_P],
+        "repro_wkv6_bwd": [_I] + [_P] * 16 + [_I] * 4 + [_P],
+        "repro_wkv6_blocks_per_sm": [_I],
     },
     "mamba2_ssd": {
         "repro_ssd_fwd": [_I] + [_P] * 9 + [_I] * 5 + [_P],

@@ -452,3 +452,233 @@ def mamba2_ssd_chunked_grads(
               + torch.einsum("bihp,bih,bin->bhpn", dyc, eL, cc))
     cat = lambda vs: torch.cat(vs[::-1], 1)[:, :t]
     return cat(dxs), cat(ddts), dA, cat(dBs), cat(dCs), dS
+
+
+# a sub-block's per-channel decay total down to -WKV6_SAFE takes the
+# factorised diagonal (its factors stay within e^{+-WKV6_SAFE}); below it the
+# channel's diagonal entries are taken exactly (kChannelSafe in wkv6.cu)
+WKV6_SAFE = 60.0
+
+
+def _wkv6_chunks(r, k, v, w, chunk):
+    """r, k, v, w zero-padded (w one-padded: no decay) to whole chunks, in
+    f32 (or wider), as (B, nc, chunk, H, D) views."""
+    b, t, h, d = r.shape
+    acc = torch.promote_types(r.dtype, torch.float32)
+    nc = -(-t // chunk)
+    pad = nc * chunk - t
+
+    def padded(x, fill=0.0):
+        x = x.to(acc)
+        if pad:
+            x = torch.cat([x, x.new_full((b, pad, h, d), fill)], 1)
+        return x.reshape(b, nc, chunk, h, d)
+
+    return padded(r), padded(k), padded(v), padded(w, 1.0), nc, acc
+
+
+def _wkv6_factors(wc, sub):
+    """One chunk's decays (B, c, H, D) as the kernels factor them, with
+    sub-blocks of ``sub`` tokens, l the inclusive and lp the exclusive sums
+    of log w inside a sub-block, tot its total and B_I the sum of the totals
+    before sub-block I:
+
+        ea = e^{lp}, ek = e^{tot - l}               (per token, both <= 1)
+        gam[I][J] = e^{B_I - B_{J+1}} (J < I)      (<= 1)
+        gam[I][I] = e^{-tot_I} where tot_I >= -WKV6_SAFE, else 0
+        eB[I] = e^{B_I}, etot[I] = e^{tot_I}, delta[J] = e^{Ltot - B_{J+1}}
+
+    and Ex[I] (B, sub, sub, H, D), the diagonal block's exact factors
+    e^{lp_i - l_j} masked to j < i before the exponent, kept only where the
+    channel is not safe."""
+    b, c, h, d = wc.shape
+    ns = c // sub
+    acc = wc.dtype
+    # the sums of log w in float64, so that a difference keeps f32's
+    # precision however far the decays have summed; each exponent is then
+    # taken in the working dtype
+    lw = torch.log(torch.clamp(wc, min=1e-30)).double().reshape(b, ns, sub, h, d)
+    l = torch.cumsum(lw, 2)
+    lp = l - lw
+    tot = l[:, :, -1]                                   # (B, ns, H, D)
+    Bs = torch.cumsum(tot, 1) - tot
+    Ltot = tot.sum(1)
+    safe = tot >= -WKV6_SAFE
+    ex = lambda x: torch.exp(x.to(acc))
+    lower = torch.tril(torch.ones((sub, sub), dtype=torch.bool,
+                                  device=wc.device), -1)
+    seg = lp[:, :, :, None] - l[:, :, None, :]          # (B, ns, i, j, H, D)
+    seg = torch.where(lower[None, None, :, :, None, None], seg,
+                      torch.full((), float("-inf"), dtype=seg.dtype))
+    Ex = ex(seg) * (~safe)[:, :, None, None]
+    gam = [[None] * ns for _ in range(ns)]
+    for I in range(ns):
+        for J in range(I):
+            gam[I][J] = ex(Bs[:, I] - Bs[:, J] - tot[:, J])
+        gam[I][I] = torch.where(safe[:, I], ex(-tot[:, I]),
+                                torch.zeros((), dtype=acc))
+    return dict(
+        ea=ex(lp).reshape(b, c, h, d),
+        ek=ex(tot[:, :, None] - l).reshape(b, c, h, d),
+        gam=gam, eB=ex(Bs), etot=ex(tot), Ex=Ex,
+        delta=ex(Ltot[:, None] - Bs - tot), eLtot=ex(Ltot))
+
+
+def _wkv6_scores(rc, kc, uf, f, sub):
+    """A (B, H, c, c): A_ij = sum_d r_id k_jd e^{Lp_i - L_j} below the
+    diagonal, from the factors of :func:`_wkv6_factors` (off-diagonal
+    sub-blocks and safe channels of the diagonal ones factorised, the rest
+    exact), and the bonus r_i . (u k_i) on the diagonal."""
+    b, c, h, d = rc.shape
+    ns = c // sub
+    a, kk = rc * f["ea"], kc * f["ek"]
+    A = rc.new_zeros((b, h, c, c))
+    for I in range(ns):
+        si = slice(I * sub, (I + 1) * sub)
+        for J in range(I + 1):
+            sj = slice(J * sub, (J + 1) * sub)
+            A[:, :, si, sj] = torch.einsum("bihd,bjhd->bhij",
+                                           a[:, si] * f["gam"][I][J][:, None],
+                                           kk[:, sj])
+        A[:, :, si, si] += torch.einsum("bihd,bjhd,bijhd->bhij", rc[:, si],
+                                        kc[:, si], f["Ex"][:, I])
+    A = A * torch.tril(torch.ones((c, c), dtype=A.dtype, device=A.device), -1)
+    beta = torch.einsum("bihd,hd,bihd->bhi", rc, uf, kc)
+    return A + torch.diag_embed(beta)
+
+
+def wkv6_chunked_form(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, state: Optional[torch.Tensor] = None, chunk: int = 64,
+    sub: int = 16,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The WKV6 kernels' forward in their chunk form, written plainly:
+    ``(y in r's dtype, final state, chunk-start states (B, H, nc, D, D))``.
+    Per chunk, with S0 its start state, Lp_i / L_i the exclusive / inclusive
+    sums of log w from the chunk's start and A from :func:`_wkv6_scores`::
+
+        y  = A v + (r e^{Lp}) S0
+        S1 = e^{Ltot} S0 + sum_j (k_j e^{Ltot - L_j}) v_j^T
+
+    where e^{Lp_i} = ea_i eB[I] and S1 is built sub-block by sub-block,
+    S <- etot[J] S + (k ek)_J^T v_J.  No exponent is positive except the
+    diagonal's factorised e^{-tot}, which is taken only where tot >=
+    -WKV6_SAFE."""
+    b, t, h, d = r.shape
+    rs, ks, vs, ws, nc, acc = _wkv6_chunks(r, k, v, w, chunk)
+    uf = u.to(acc)
+    S = (torch.zeros((b, h, d, d), dtype=acc, device=r.device)
+         if state is None else state.to(acc))
+    ys, starts = [], []
+    for c in range(nc):
+        rc, kc, vc = rs[:, c], ks[:, c], vs[:, c]
+        f = _wkv6_factors(ws[:, c], sub)
+        starts.append(S)
+        A = _wkv6_scores(rc, kc, uf, f, sub)
+        y = torch.einsum("bhij,bjhe->bihe", A, vc)
+        a, kk = rc * f["ea"], kc * f["ek"]
+        for I in range(chunk // sub):
+            si = slice(I * sub, (I + 1) * sub)
+            y[:, si] += torch.einsum("bihd,bhde->bihe",
+                                     a[:, si] * f["eB"][:, I][:, None], S)
+        for J in range(chunk // sub):
+            sj = slice(J * sub, (J + 1) * sub)
+            S = (f["etot"][:, J][..., None] * S
+                 + torch.einsum("bjhd,bjhe->bhde", kk[:, sj], vc[:, sj]))
+        ys.append(y)
+    y = torch.stack(ys, 1).reshape(b, nc * chunk, h, d)[:, :t]
+    return y.to(r.dtype), S, torch.stack(starts, 2)
+
+
+def wkv6_chunked_form_grads(
+    r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+    u: torch.Tensor, starts: torch.Tensor, dy: torch.Tensor, chunk: int = 64,
+    sub: int = 16,
+) -> Tuple[torch.Tensor, ...]:
+    """The WKV6 backward kernel's arithmetic, written plainly, from the
+    chunk-start states of :func:`wkv6_chunked_form` and dy (no gradient on
+    the final state): ``(dr, dk, dv, dw, du, dstate)``, all in f32.
+
+    The chunks run in reverse with G, the gradient on the chunk's end state
+    (0 after the last).  With dA_ij = dy_i . v_j below the diagonal and
+    dbeta_i = dy_i . v_i::
+
+        dv   = A^T dy + (k e^{Ltot - L}) G
+        drA  = e^{Lp - Lp_I} (sum_J dA_IJ (k ek)_J gam[I][J]
+                              + dy S0^T eB[I])   (+ the exact diagonal)
+        dkA  = ek sum_I dA_IJ^T (r ea)_I gam[I][J] (+ the exact diagonal)
+        dkS  = e^{Ltot - L} (v G^T)
+        dr   = drA + u k dbeta,  dk = dkA + dkS + u r dbeta
+        da_t = sum_{s>t} (r drA - k dkA)_s - (k dkA)_t
+               + sum_{s<t} (k dkS)_s + e^{Ltot} <G, S0>_row
+        dw   = da / w (0 where w <= 1e-30),  du = sum_t dbeta_t r_t k_t
+        dS0  = e^{Ltot} G + sum_i (r e^{Lp})_i dy_i^T
+
+    (drA holds the state term too).  The per-token sums are over one chunk,
+    the state terms summed from the front (dkS) or the back (drA), so no
+    sum takes the difference of two whole-chunk totals, and no decay is
+    divided out: S0 comes from the forward's saved states."""
+    b, t, h, d = r.shape
+    rs, ks, vs, ws, nc, acc = _wkv6_chunks(r, k, v, w, chunk)
+    dys = _wkv6_chunks(dy, k, v, w, chunk)[0]
+    uf = u.to(acc)
+    ns = chunk // sub
+    lower = torch.tril(torch.ones((chunk, chunk), dtype=acc, device=r.device),
+                       -1)
+    G = torch.zeros((b, h, d, d), dtype=acc, device=r.device)
+    du = torch.zeros((h, d), dtype=acc, device=r.device)
+    drs, dks, dvs, dws = [], [], [], []
+    for c in reversed(range(nc)):
+        rc, kc, vc, wc, dyc = rs[:, c], ks[:, c], vs[:, c], ws[:, c], dys[:, c]
+        S0 = starts[:, :, c].to(acc)
+        f = _wkv6_factors(wc, sub)
+        a, kk = rc * f["ea"], kc * f["ek"]
+        A = _wkv6_scores(rc, kc, uf, f, sub)
+        dAf = torch.einsum("bihe,bjhe->bhij", dyc, vc)
+        dbeta = torch.diagonal(dAf, dim1=-2, dim2=-1)            # (B, H, c)
+        dA = dAf * lower
+        dvs.append(torch.einsum("bhij,bihe->bjhe", A, dyc)
+                   + torch.einsum("bjhd,bhde->bjhe",
+                                  kk * f["delta"].repeat_interleave(sub, 1), G))
+        drA = torch.zeros_like(rc)
+        dkA = torch.zeros_like(rc)
+        for I in range(ns):
+            si = slice(I * sub, (I + 1) * sub)
+            x = (torch.einsum("bihe,bhde->bihd", dyc[:, si], S0)
+                 * f["eB"][:, I][:, None])
+            for J in range(I + 1):
+                sj = slice(J * sub, (J + 1) * sub)
+                x = x + (torch.einsum("bhij,bjhd->bihd", dA[..., si, sj],
+                                      kk[:, sj])
+                         * f["gam"][I][J][:, None])
+            drA[:, si] = x * f["ea"][:, si] + torch.einsum(
+                "bhij,bjhd,bijhd->bihd", dA[..., si, si], kc[:, si],
+                f["Ex"][:, I])
+        for J in range(ns):
+            sj = slice(J * sub, (J + 1) * sub)
+            y = 0
+            for I in range(J, ns):
+                si = slice(I * sub, (I + 1) * sub)
+                y = y + (torch.einsum("bhij,bihd->bjhd", dA[..., si, sj],
+                                      a[:, si])
+                         * f["gam"][I][J][:, None])
+            dkA[:, sj] = y * f["ek"][:, sj] + torch.einsum(
+                "bhij,bihd,bijhd->bjhd", dA[..., sj, sj], rc[:, sj],
+                f["Ex"][:, J])
+        dkS = (torch.einsum("bjhe,bhde->bjhd", vc, G) * f["ek"]
+               * f["delta"].repeat_interleave(sub, 1))
+        sigma = f["eLtot"] * (G * S0).sum(-1)                   # (B, H, D)
+        db = dbeta.transpose(1, 2)[..., None]                    # (B, c, H, 1)
+        drs.append(drA + uf * kc * db)
+        dks.append(dkA + dkS + uf * rc * db)
+        du = du + (db * rc * kc).sum((0, 1))
+        p = rc * drA - kc * dkA
+        q = kc * dkS
+        suffix = torch.flip(torch.cumsum(torch.flip(p, (1,)), 1), (1,)) - p
+        da = suffix - kc * dkA + torch.cumsum(q, 1) - q + sigma[:, None]
+        dws.append(torch.where(wc > 1e-30, da / wc, torch.zeros_like(da)))
+        reB = a * f["eB"].repeat_interleave(sub, 1)
+        G = (f["eLtot"][..., None] * G
+             + torch.einsum("bihd,bihe->bhde", reB, dyc))
+    cat = lambda vs: torch.cat(vs[::-1], 1)[:, :t]
+    return cat(drs), cat(dks), cat(dvs), cat(dws), du, G

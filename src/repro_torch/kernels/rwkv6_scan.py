@@ -3,17 +3,29 @@ autograd function.
 
 Counterpart of ``repro/kernels/rwkv6_scan.py``.  The Pallas kernel
 ``wkv6_pallas`` becomes the hand-written CUDA source ``csrc/wkv6.cu``,
-built at first use (:mod:`repro_torch.kernels._build`): a forward that
-takes an initial state (the Pallas kernel asserts a zero one) and saves
-the state at every 32-token chunk start, and a deterministic backward (no
-atomics) recomputed from those states.  The reference needs no backward
-kernel because JAX differentiates its chunked jnp version; the port's
-training loss runs through the forward kernel, so it has one.
+built at first use (:mod:`repro_torch.kernels._build`).  The kernels run
+the chunked matmul form (chunks of :data:`CHUNK` = 64 tokens cut into
+sub-blocks of 16, the pairwise decays re-centred per sub-block) on tensor
+cores for bf16 inputs (``mma.sync``, f32 operands as hi + lo bf16 pairs)
+and on the CUDA cores in f32 for f32 inputs.  The forward walks the chunks
+of each (batch row, head) in one block, with the state in registers; it
+takes an initial state (the
+Pallas kernel asserts a zero one) and, for the backward, saves the state
+at every chunk start.  The backward (the reference needs none: JAX
+differentiates its chunked jnp version) runs every chunk at once: one
+kernel for each chunk's part of the state gradient, an elementwise chain
+of those parts over the chunks in reverse (the state gradient at every
+chunk end), then one block per chunk for everything else, from the
+chunk's saved state and state gradient.
+No atomics: the same inputs give the same bits.
+``kernels.ref.wkv6_chunked_form`` and ``kernels.ref.wkv6_chunked_form_grads``
+write the same arithmetic plainly.
 
 :func:`wkv6` is the differentiable entry point (``torch.autograd.Function``);
 :func:`wkv6_fwd` and :func:`wkv6_bwd` launch the kernels and count their
-launches in ``.launches``.  They take CUDA tensors only; the plain version
-is :func:`repro_torch.kernels.ops.wkv6_chunked`, and
+wrapper calls in ``.launches`` (CUDA launches per call:
+:data:`CUDA_LAUNCHES`).  They take CUDA tensors only; the plain version is
+:func:`repro_torch.kernels.ops.wkv6_chunked`, and
 :mod:`repro_torch.kernels.ops` picks between the two by device.
 """
 
@@ -25,11 +37,26 @@ import torch
 
 from repro_torch.kernels import _build
 
-CHUNK = 32          # the kernels' state-save interval (kChunk in wkv6.cu)
+CHUNK = 64          # tokens per chunk; the state-save interval (kChunk in wkv6.cu)
 MAX_HEAD = 64
+# per wrapper call: the forward kernel; the backward's per-chunk state
+# gradient parts, their chain, the chunk kernel and du's sum over the batch
+# rows and chunks (each of the last three launched behind the one before)
+CUDA_LAUNCHES = {"fwd": 1, "bwd": 4}
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["CHUNK", "wkv6", "wkv6_fwd", "wkv6_bwd"]
+__all__ = ["CHUNK", "CUDA_LAUNCHES", "plan", "wkv6", "wkv6_fwd", "wkv6_bwd"]
+
+
+def plan(b: int, t: int, h: int, d: int) -> dict:
+    """What one call launches: the forward's blocks (one per batch row and
+    head, whatever the head size ``d``), the chunks, and the backward's
+    chunk-kernel blocks (its dG and chunk kernels run one block per chunk;
+    the chain over the chunks one thread per state element); the CUDA
+    launches."""
+    chunks = -(-t // CHUNK)
+    return {"fwd_blocks": b * h, "chunks": chunks, "bwd_blocks": b * h * chunks,
+            "launches": CUDA_LAUNCHES}
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -75,12 +102,11 @@ def wkv6_fwd(r, k, v, w, u, state: Optional[torch.Tensor] = None,
              save: bool = False
              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor]]:
     """One forward launch: ``(y (B, T, H, D) in r's dtype, final state
-    (B, H, D, D) f32, chunk-start states (B, H, ceil(T/32), D, D) f32 or
-    None)``; the chunk-start states are written only with ``save``."""
+    (B, H, D, D) f32, chunk-start states (B, H, ceil(T/64), D, D) f32 or
+    None)``; the chunk-start states are written only with ``save``.  No
+    ``state`` is a zero one."""
     _check(r, k, v, w, u, state)
     b, t, h, d = r.shape
-    if state is None:
-        state = torch.zeros((b, h, d, d), dtype=torch.float32, device=r.device)
     y = torch.empty_like(r)
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     ckpt = (torch.empty((b, h, -(-t // CHUNK), d, d), dtype=torch.float32,
@@ -88,9 +114,9 @@ def wkv6_fwd(r, k, v, w, u, state: Optional[torch.Tensor] = None,
     lib = _build.library("wkv6")
     err = lib.repro_wkv6_fwd(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
-        w.data_ptr(), u.data_ptr(), state.data_ptr(), y.data_ptr(),
-        s_out.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(), b, t, h, d,
-        _stream(r))
+        w.data_ptr(), u.data_ptr(), 0 if state is None else state.data_ptr(),
+        y.data_ptr(), s_out.data_ptr(), 0 if ckpt is None else ckpt.data_ptr(),
+        b, t, h, d, _stream(r))
     _raise_on(err, "wkv6_fwd")
     wkv6_fwd.launches += 1
     return y, s_out, ckpt
@@ -101,9 +127,10 @@ wkv6_fwd.launches = 0
 
 def wkv6_bwd(r, k, v, w, u, ckpt, dy
              ) -> Tuple[torch.Tensor, ...]:
-    """One backward launch from the forward's chunk-start states:
-    ``(dr, dk, dv in r's dtype, dw f32, du (H, D) f32, dstate (B, H, D, D)
-    f32)``; du is summed over the batch in a fixed order."""
+    """One backward call (:data:`CUDA_LAUNCHES` ``["bwd"]`` launches) from
+    the forward's chunk-start states: ``(dr, dk, dv in r's dtype, dw f32,
+    du (H, D) f32, dstate (B, H, D, D) f32)``; du is summed over the batch
+    rows and chunks in a fixed order."""
     _check(r, k, v, w, u, None)
     b, t, h, d = r.shape
     if (tuple(ckpt.shape) != (b, h, -(-t // CHUNK), d, d)
@@ -113,17 +140,23 @@ def wkv6_bwd(r, k, v, w, u, ckpt, dy
         raise ValueError(f"dy must be a contiguous {r.dtype} tensor of r's shape")
     dr, dk, dv = torch.empty_like(r), torch.empty_like(k), torch.empty_like(v)
     dw = torch.empty_like(w)
-    du_part = torch.empty((b, h, d), dtype=torch.float32, device=r.device)
+    du_part = torch.empty((b, h, -(-t // CHUNK), d), dtype=torch.float32,
+                          device=r.device)
+    du = torch.empty((h, d), dtype=torch.float32, device=r.device)
     ds0 = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
+    gsave = torch.empty_like(ckpt)   # the state gradient at every chunk's end
+    eltot = torch.empty((b, h, -(-t // CHUNK), d), dtype=torch.float32,
+                        device=r.device)
     lib = _build.library("wkv6")
     err = lib.repro_wkv6_bwd(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
         w.data_ptr(), u.data_ptr(), ckpt.data_ptr(), dy.data_ptr(),
         dr.data_ptr(), dk.data_ptr(), dv.data_ptr(), dw.data_ptr(),
-        du_part.data_ptr(), ds0.data_ptr(), b, t, h, d, _stream(r))
+        du_part.data_ptr(), du.data_ptr(), ds0.data_ptr(), gsave.data_ptr(),
+        eltot.data_ptr(), b, t, h, d, _stream(r))
     _raise_on(err, "wkv6_bwd")
     wkv6_bwd.launches += 1
-    return dr, dk, dv, dw, du_part.sum(dim=0), ds0
+    return dr, dk, dv, dw, du, ds0
 
 
 wkv6_bwd.launches = 0
