@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-drives its serving path with full-width, full-depth phi3-mini-3.8b and
+drives its serving path (paged, resilient and contiguous) with
+full-width, full-depth phi3-mini-3.8b and
 its training-and-recovery path with full-width phi3-mini-3.8b cut to 2
 layers, rwkv6-3b cut to 2 and zamba2-2.7b cut to 6 (random weights from
 a seed).  Phases, each of which raises on a
@@ -95,7 +96,25 @@ failed check:
    layer, one flash launch per shared-block group), training cut to 6
    layers (one group): 2 forward and 1 backward SSD launches per Mamba
    layer per step, 1 flash forward and 3 flash backward launches per
-   group per step.
+   group per step;
+13. resilient serving of full-size phi3-mini-3.8b through ``Serve.local``
+   (4 slots, max_len 256, page 16, quantum 4, spec_k=3; 8 requests
+   sharing a 48-token system prompt, 8-32 tokens of their own, 32 new
+   tokens): (a) no prefix cache, the default pool; (b) the prefix cache
+   and a pool of 80 pages (five lanes), so admission spills: (a)'s
+   tokens, spills, refills, prefix hits and saved prefill tokens > 0,
+   resume bytes equal to the refills' alone (clean resumes move none),
+   paged launches = layers x token iterations with no plain attention
+   call; (c) (b) under an XOR ``ResilienceSession`` on a virtual
+   cluster, checkpointed once a stream is spilled and a prefix page is
+   bound in the pool, the stack closed, node 1 failed and recovered, a
+   fresh stack restored (pool SHA-256, allocator, pager tables and trie
+   equal to the saved) and finished with (a)'s tokens; (d) the
+   contiguous scheduler (2 slots, quantum 2, 4 requests, 8 new tokens,
+   full depth) with pager and prefix cache, uninterrupted and through
+   the same kill and restore: the same tokens, parks and resumes through
+   the pager, no paged launch, one plain decode attention call per
+   layer per slot per step and per prefill token.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -146,6 +165,7 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import xor_parity as xp  # noqa: E402
 from repro_torch.memory.stack import TierStack  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves  # noqa: E402
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
@@ -1977,6 +1997,278 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
             "prefill": prefill, "f32_logits_err": f32_err}
 
 
+# ---------------------------------------------------------------------- #
+# phase 13: resilient serving of full-size phi3
+# ---------------------------------------------------------------------- #
+
+# 8 requests share a 48-token system prompt (3 pages of 16) and add 8-32
+# tokens of their own; the resilient runs' pool of 80 pages holds five
+# lanes, so 8 streams over 4 slots must spill.  The contiguous run (d)
+# serves 4 of them over 2 slots at full depth.
+RESILIENT = dict(system=48, own=(8, 32), pool_pages=80, fail_rank=1,
+                 contig_requests=4, contig_slots=2, contig_quantum=2,
+                 contig_max_new=8)
+
+
+def resilient_requests(vocab: int):
+    rng = np.random.default_rng(SEED)
+    system = rng.integers(0, vocab, size=RESILIENT["system"]).tolist()
+    lo, hi = RESILIENT["own"]
+    return [system + rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
+                                  ).tolist() for _ in range(N_REQUESTS)]
+
+
+def tree_sha(tree) -> str:
+    """SHA-256 over a dict of tensors' raw bytes, in sorted name order."""
+    h = hashlib.sha256()
+    for name in sorted(tree):
+        t = tree[name].detach().contiguous().cpu()
+        h.update((t.view(torch.int16) if t.dtype == torch.bfloat16 else t)
+                 .numpy().tobytes())
+    return h.hexdigest()
+
+
+def serving_fingerprint(sched) -> dict:
+    """What a restore must reproduce exactly: the pool's bytes (or the
+    lanes'), the allocator, the parked pager tables, the prefix trie and
+    the stream set."""
+    out = {}
+    if isinstance(sched, scheduler.PagedServeScheduler):
+        out["pool_sha256"] = tree_sha(sched.pool.snapshot())
+        out["allocator"] = [sched.pool.refcounts(), sorted(sched.pool._free),
+                            sched.pool.resident_digests(),
+                            dict(sorted(sched._ptables.items()))]
+    else:
+        out["lanes_sha256"] = tree_sha(sched.slots_cache)
+    out["pager"] = {sid: [sched.pager.page_table(sid),
+                          sched.pager.parked_nbytes(sid),
+                          sched.pager.parked_kind(sid)]
+                    for sid in sched.pager.parked_sids()}
+    out["trie"] = [sched.prefix.export_records(), sched.prefix.stream_refs()]
+    out["streams"] = sched.live_descriptors()
+    return out
+
+
+def checkpointable(sched) -> bool:
+    """A stream parked off its slot through the pager (spilled, on the
+    paged path) and, on the paged path, a prefix page bound in the pool."""
+    if isinstance(sched, scheduler.PagedServeScheduler):
+        return (sched.stats["spilled"] > 0 and bool(sched.pager.parked_sids())
+                and bool(sched.pool.resident_digests()))
+    return bool(sched.pager.parked_sids())
+
+
+def token_iterations(stats, spec_k) -> int:
+    return (stats["prefill_calls"] * scheduler.PREFILL_BUCKET
+            + stats["steps"] * (spec_k + 1))
+
+
+def resilient_run(tag, cfg, prompts, max_new, kill=False) -> dict:
+    """Serve ``prompts`` through ``Serve.local(cfg)`` with the paged
+    kernels' counts and the plain decode attention's calls from zero.
+    With ``kill``: run until ``checkpointable``, save through an XOR
+    session on a virtual cluster, close the stack, fail and recover a
+    node, restore a fresh stack (its pool, allocator, pager tables and
+    trie must equal the saved ones) and finish."""
+    torch.cuda.reset_peak_memory_stats()
+    tmp = cluster = session = None
+    if kill:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_"))
+        cluster = VirtualCluster(n_cluster=4, n_booster=4, root=tmp)
+        session = ResilienceSession.for_cluster(
+            cluster, strategy=Strategy.XOR, procs_per_node=2)
+    out = {"stats": [], "iters": 0, "ckpt": None}
+    try:
+        srv = Serve.local(cfg, session=session)
+        n_layers = srv.arch.n_layers
+        sids = [srv.submit(p, max_new=max_new) for p in prompts]
+        torch.cuda.synchronize()
+        reset_launches()
+        with counting_calls([(model_layers, "decode_attention")]) as calls:
+            t0 = time.perf_counter()
+            if kill:
+                while srv.scheduler.unfinished() and not checkpointable(
+                        srv.scheduler):
+                    srv.step()
+                if not checkpointable(srv.scheduler):
+                    raise AssertionError(f"{tag}: finished before a stream "
+                                         "parked off its slot")
+                torch.cuda.synchronize()
+                before = time.perf_counter() - t0
+                out["stats"].append(dict(srv.stats))
+                out["iters"] += token_iterations(srv.stats, cfg.spec_k)
+                t1 = time.perf_counter()
+                rec = srv.save()
+                session.wait_drained()
+                commit_s = time.perf_counter() - t1
+                saved = serving_fingerprint(srv.scheduler)
+                srv.close()
+                del srv
+                release()
+                rank = RESILIENT["fail_rank"]
+                cluster.fail(rank, NodeState.FAILED_NODE)
+                cluster.recover(rank)
+                session.invalidate_node(rank)
+                srv = Serve.local(cfg, session=session)
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                srv.restore()
+                torch.cuda.synchronize()
+                restore_s = time.perf_counter() - t1
+                same = serving_fingerprint(srv.scheduler) == saved
+                out["ckpt"] = {
+                    "bytes": rec.total_bytes, "commit_s": commit_s,
+                    "restore_s": restore_s, "at_step": rec.step,
+                    "restored_equal": same,
+                    "pool_sha256": saved.get("pool_sha256"),
+                    "lanes_sha256": saved.get("lanes_sha256")}
+                say(f"  {tag}: checkpoint at step {rec.step} after "
+                    f"{before:.3f} s: {rec.total_bytes} bytes, commit + drain "
+                    f"{commit_s:.3f} s; node {rank} failed and recovered; "
+                    f"restore into a fresh stack {restore_s:.3f} s; pool / "
+                    f"allocator / pager tables / trie equal to the saved: "
+                    f"{same}")
+                if not same:
+                    raise AssertionError(f"{tag}: the restored serving state "
+                                         "differs from the saved one")
+                t0 = time.perf_counter()
+            srv.run()
+            torch.cuda.synchronize()
+            out["wall"] = time.perf_counter() - t0
+        out["stats"].append(dict(srv.stats))
+        out["iters"] += token_iterations(srv.stats, cfg.spec_k)
+        out["launches"] = pa.paged_attention.launches
+        out["plain_calls"] = calls["decode_attention"]
+        out["outs"] = [srv.output(s) for s in sids]
+        out["n_layers"] = n_layers
+        if isinstance(srv.scheduler, scheduler.PagedServeScheduler):
+            pool = srv.scheduler.pool
+            out["lane_bytes"] = pool.pages_per_lane * pool.page_nbytes
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        srv.close()
+        del srv
+    finally:
+        if session is not None:
+            session.close()
+            cluster.teardown()
+            shutil.rmtree(tmp, ignore_errors=True)
+        release()
+    total = {k: sum(st.get(k, 0) for st in out["stats"])
+             for k in out["stats"][-1]}
+    out["total"] = total
+    n_tok = sum(len(o) for o in out["outs"])
+    leg = (f"after the restore in {out['wall']:.3f} s" if kill else
+           f"in {out['wall']:.3f} s = {n_tok / out['wall']:.2f} tok/s")
+    say(f"  {tag}: {n_tok} tokens {leg}; steps={total['steps']} "
+        f"prefill_calls={total['prefill_calls']} "
+        f"prefill_tokens={total['prefill_tokens']} parked={total['parked']} "
+        f"resumed={total['resumed']} spilled={total.get('spilled', 0)} "
+        f"refilled={total.get('refilled', 0)} "
+        f"prefix_hits={total['prefix_hits']} "
+        f"prefill_tokens_saved={total['prefill_tokens_saved']} "
+        f"kv_resume_bytes_moved={total.get('kv_resume_bytes_moved', 0)}; "
+        f"paged launches {out['launches']}, plain decode attention calls "
+        f"{out['plain_calls']}, token iterations {out['iters']}; peak device "
+        f"memory {out['peak_gib']:.3f} GiB")
+    return out
+
+
+def phase13(kernels: dict) -> dict:
+    say("== phase 13: resilient serving of full-size phi3-mini-3.8b (pager, "
+        "prefix cache, spills, kill and restore)")
+    t_phase = time.perf_counter()
+    arch = serve_arch()
+    prompts = resilient_requests(arch.vocab_size)
+    say(f"  {N_REQUESTS} requests of {[len(p) for p in prompts]} tokens "
+        f"({RESILIENT['system']} shared), max_new={MAX_NEW}, spec_k=3; "
+        f"slots {SERVE['slots']}, max_len {SERVE['max_len']}, page "
+        f"{SERVE['page_tokens']}, quantum {SERVE['quantum']}")
+    base = dict(SERVE, spec_k=3)
+    runs = {}
+    runs["a"] = resilient_run("(a) plain", ServeConfig(**base), prompts,
+                              MAX_NEW)
+    resilient = ServeConfig(**dict(base, prefix=True,
+                                   pool_pages=RESILIENT["pool_pages"]))
+    runs["b"] = resilient_run("(b) resilient", resilient, prompts, MAX_NEW)
+    runs["c"] = resilient_run("(c) kill and restore", resilient, prompts,
+                              MAX_NEW, kill=True)
+    contig = ServeConfig(**dict(SERVE, paged=False, prefix=True,
+                                slots=RESILIENT["contig_slots"],
+                                quantum=RESILIENT["contig_quantum"]))
+    few = prompts[:RESILIENT["contig_requests"]]
+    runs["d"] = resilient_run("(d) contiguous", contig, few,
+                              RESILIENT["contig_max_new"])
+    runs["d_kill"] = resilient_run("(d) contiguous, kill and restore", contig,
+                                   few, RESILIENT["contig_max_new"], kill=True)
+
+    failures = []
+    for key in ("b", "c"):
+        r, t = runs[key], runs[key]["total"]
+        if r["outs"] != runs["a"]["outs"]:
+            failures.append(f"({key}) tokens differ from (a)'s")
+        for name in ("spilled", "refilled", "prefix_hits",
+                     "prefill_tokens_saved"):
+            if t[name] <= 0:
+                failures.append(f"({key}) {name} = {t[name]}")
+        # clean resumes move 0 KV bytes: only the refills move pages
+        refills = t["refilled"] * r["lane_bytes"]
+        if t["kv_resume_bytes_moved"] != refills:
+            failures.append(
+                f"({key}) kv_resume_bytes_moved {t['kv_resume_bytes_moved']} "
+                f"!= refills x lane bytes {refills}")
+        if r["launches"] != r["n_layers"] * r["iters"] or r["plain_calls"]:
+            failures.append(
+                f"({key}) {r['launches']} paged launches, want "
+                f"{r['n_layers']} layers x {r['iters']} token iterations, and "
+                f"{r['plain_calls']} plain decode attention calls, want 0")
+    d, dk = runs["d"], runs["d_kill"]
+    if dk["outs"] != d["outs"]:
+        failures.append("(d) tokens after the kill differ from the "
+                        "uninterrupted contiguous run's")
+    for tag, r in (("(d)", d), ("(d) kill", dk)):
+        t = r["total"]
+        want = r["n_layers"] * (RESILIENT["contig_slots"] * t["steps"]
+                                + t["prefill_tokens"])
+        if r["launches"] or r["plain_calls"] != want:
+            failures.append(f"{tag}: {r['launches']} paged launches (want 0) "
+                            f"and {r['plain_calls']} plain decode attention "
+                            f"calls (want {want})")
+        if t["parked"] <= 0 or t["resumed"] <= 0 or t["prefix_hits"] <= 0:
+            failures.append(f"{tag}: parked {t['parked']} resumed "
+                            f"{t['resumed']} prefix_hits {t['prefix_hits']}")
+    same_d = sum(a == b for x, y in zip(d["outs"], runs["a"]["outs"])
+                 for a, b in zip(x, y))
+    say(f"  (d) token agreement with (a) over their common tokens: {same_d} "
+        f"(contiguous plain attention against the paged kernel at bf16; "
+        f"reported, not gated)")
+    seconds = time.perf_counter() - t_phase
+    say(f"  phase 13 took {seconds:.1f} s")
+    if failures:
+        raise AssertionError("phase 13 gates failed:\n  "
+                             + "\n  ".join(failures))
+    say("  (b) and (c) emitted (a)'s tokens; (d) after a kill and restore "
+        "emitted the uninterrupted contiguous run's")
+    for key in ("b", "c"):
+        kernels["paged_attention"][f"launches_phase13_{key}"] = runs[key]["launches"]
+    summary = {}
+    for key, r in runs.items():
+        n_tok = sum(len(o) for o in r["outs"])
+        summary[key] = {
+            "tokens": n_tok, "wall_s": r["wall"],
+            "tok_per_s": None if r["ckpt"] else n_tok / r["wall"],
+            "steps": r["total"]["steps"],
+            "spilled": r["total"].get("spilled", 0),
+            "refilled": r["total"].get("refilled", 0),
+            "prefix_hits": r["total"]["prefix_hits"],
+            "prefill_tokens_saved": r["total"]["prefill_tokens_saved"],
+            "kv_resume_bytes_moved": r["total"].get("kv_resume_bytes_moved", 0),
+            "paged_launches": r["launches"], "plain_calls": r["plain_calls"],
+            "peak_gib": r["peak_gib"], "checkpoint": r["ckpt"]}
+    summary["seconds"] = seconds
+    say("  phase 13 record: " + json.dumps(summary))
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -2073,6 +2365,8 @@ def main() -> int:
         for name in ("flash_attention_fwd", "flash_attention_bwd"):
             if name in got["launches"]:   # zamba2's shared block
                 kernels[name]["launches_" + arch] = got["launches"][name]
+
+    phase13(kernels)
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

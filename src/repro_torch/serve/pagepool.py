@@ -14,17 +14,23 @@ whole table at it, so their discarded writes never land in a live
 stream's pages.  The allocator (free list order, refcounts, digest map)
 behaves exactly as the reference's.
 
-The page I/O that the pager and the prefix cache use (page blobs, token
-slices) waits for the resilient-serving slice.
+Page I/O (the park, spill, prefix and checkpoint paths, never the decode
+loop) writes pages in place into the device leaves and reads them with
+one device-to-host copy per leaf.  A page blob is the page's leaves in
+sorted name order, in the decoded template dtype, bfloat16 as its raw
+16-bit patterns: the reference's layout.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.memory.codecs import SCALE_SUFFIX
+from repro_torch.io.serialization import _TORCH_DTYPES, _leaf_bytes, _leaf_from
+from repro_torch.memory.codecs import (SCALE_SUFFIX, int8_dequantize,
+                                       int8_quantize)
 from repro_torch.memory.tiers import CapacityError
 
 TRASH_PAGE = 0
@@ -34,12 +40,12 @@ class DevicePagePool:
     """Fixed-capacity pool of KV pages on ``device`` + host allocator.
 
     ``lane_template`` is one lane's cache (``model.init_cache(cfg, 1,
-    max_len)``; only shapes and dtypes are read, so a meta-device
-    template will do); every leaf must be laid out ``(layers, batch=1,
+    max_len)``; only shapes and dtypes are read); every leaf must be laid out ``(layers, batch=1,
     kv_seq, *rest)`` (``model.cache_axes``).  ``n_pages`` is the physical
     capacity excluding the trash page.  ``quantized=True`` holds each
     K/V leaf as int8 with one float32 scale per last-axis channel in a
-    ``<name>__scale`` companion leaf.
+    ``<name>__scale`` companion leaf; page I/O stays in decoded
+    template-dtype values (quantized on write, dequantized on read).
     """
 
     def __init__(self, lane_template: Any, axes: Any, page_tokens: int,
@@ -160,6 +166,104 @@ class DevicePagePool:
     def resident_digests(self) -> Dict[str, int]:
         return dict(self._digest_phys)
 
+    # -- page I/O (park/spill paths only — never the decode hot loop) ------ #
+
+    def _store_decoded(self, phys: int, name: str, arr: Any,
+                       n: Optional[int] = None) -> None:
+        """Write one leaf's decoded page slice (L, n, *rest) — the first
+        ``n`` tokens of slot ``phys``, the whole page by default —
+        quantizing per channel (last axis) on the device in quantized
+        mode."""
+        leaf = self.leaves[name]
+        n = self.page_tokens if n is None else n
+        src = torch.as_tensor(arr).to(leaf.device)
+        if self.quantized:
+            q, scale = int8_quantize(src, axis=-1)
+            leaf[:, phys, :n] = q
+            self.leaves[name + SCALE_SUFFIX][:, phys, :n] = scale[..., 0]
+        else:
+            leaf[:, phys, :n] = src.to(leaf.dtype)
+
+    def read_page(self, phys: int) -> Dict[str, torch.Tensor]:
+        """One physical page's per-leaf host tensors, each (L, pt, *rest),
+        always in the decoded template dtype."""
+        out = {}
+        for name in self.data_names:
+            x = self.leaves[name][:, phys]
+            if self.quantized:
+                scale = self.leaves[name + SCALE_SUFFIX][:, phys]
+                x = int8_dequantize(x, scale[..., None]).to(self.dtypes[name])
+            out[name] = torch.empty(x.shape, dtype=x.dtype).copy_(x)
+        return out
+
+    def page_blob(self, phys: int) -> bytes:
+        """One physical page as bytes (leaves concatenated in sorted name
+        order, decoded even in quantized mode) — the interchange unit
+        with the KVPager."""
+        page = self.read_page(phys)
+        return b"".join(_leaf_bytes(page[n])[0] for n in self.data_names)
+
+    def write_page(self, phys: int, page: Dict[str, Any]) -> None:
+        for name, arr in page.items():
+            self._store_decoded(phys, name, arr)
+
+    def _split_blob(self, blob: bytes) -> Dict[str, torch.Tensor]:
+        """A page blob as per-leaf host tensors (L, pt, *rest)."""
+        if len(blob) != self.page_nbytes:
+            raise ValueError(
+                f"page blob of {len(blob)} bytes != page size "
+                f"{self.page_nbytes}")
+        off = 0
+        page = {}
+        for name in self.data_names:
+            leaf, dtype = self.leaves[name], self.dtypes[name]
+            shape = [leaf.shape[0], self.page_tokens] + list(leaf.shape[3:])
+            n = math.prod(shape) * dtype.itemsize
+            entry = {"shape": shape, "dtype": _TORCH_DTYPES[dtype]}
+            page[name] = _leaf_from(blob[off:off + n], entry, leaf)
+            off += n
+        return page
+
+    def write_blob(self, phys: int, blob: bytes) -> None:
+        self.write_page(phys, self._split_blob(blob))
+
+    def write_token_slice(self, phys: int, part: Any) -> None:
+        """Scatter a prefix-cache payload slice — leaves (L, 1,
+        page_tokens, *rest) — into one physical page."""
+        for name in self.data_names:
+            self._store_decoded(phys, name, torch.as_tensor(part[name])[:, 0])
+
+    def read_token_slice(self, phys: int) -> Any:
+        """The inverse of :meth:`write_token_slice`: a prefix-cache
+        payload (leaves (L, 1, page_tokens, *rest)) cut from one page."""
+        return {name: arr[:, None]
+                for name, arr in self.read_page(phys).items()}
+
+    def blob_to_token_slice(self, blob: bytes) -> Any:
+        """Reinterpret one page blob as a prefix-cache payload, without
+        touching the device (a spilled stream's parked pages)."""
+        return {name: arr[:, None]
+                for name, arr in self._split_blob(blob).items()}
+
+    def write_token_range(self, phys: int, part: Any, n: int) -> None:
+        """Scatter the first ``n`` tokens of a page — a partial-page tail
+        payload, leaves (L, 1, n, *rest) — into slot ``phys``.  Positions
+        past ``n`` are untouched: they are stream-private, written by the
+        owner's suffix prefill."""
+        if not 0 < n <= self.page_tokens:
+            raise ValueError(f"token range {n} outside (0, {self.page_tokens}]")
+        for name in self.data_names:
+            self._store_decoded(phys, name, torch.as_tensor(part[name])[:, 0],
+                                n=n)
+
+    def read_token_range(self, phys: int, n: int) -> Any:
+        """The first ``n`` tokens of a page as a payload (leaves (L, 1, n,
+        *rest)) — the tail-registration read."""
+        if not 0 < n <= self.page_tokens:
+            raise ValueError(f"token range {n} outside (0, {self.page_tokens}]")
+        return {name: arr[:, None, :n]
+                for name, arr in self.read_page(phys).items()}
+
     # -- checkpoint -------------------------------------------------------- #
 
     def snapshot(self) -> Dict[str, torch.Tensor]:
@@ -181,3 +285,4 @@ class DevicePagePool:
         self._free = [p for p in range(1, 1 + self.n_pages)
                       if p not in self._refs]
         self._digest_phys = {str(d): int(p) for d, p in digest_phys.items()}
+

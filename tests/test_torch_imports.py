@@ -24,7 +24,8 @@ def port_modules():
 def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = list(port_modules())
     for mod in ("kernels.paged_attention", "kernels.rwkv6_scan",
-                "kernels.mamba2_ssd", "models.rwkv6", "models.mamba2"):
+                "kernels.mamba2_ssd", "models.rwkv6", "models.mamba2",
+                "serve.kvpage", "serve.prefix", "serve.engine"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -12,6 +12,7 @@ import dataclasses
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jget_config
 from repro.models.registry import get_model as jget_model
@@ -26,6 +27,17 @@ from repro_torch.serve.spec import NGramProposer as TProposer
 
 ARCH = "phi3-mini-3.8b"
 MAX_LEN, MAX_NEW, PT = 24, 6, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread: the tensors here are tiny, and the suite runs
+    several workers on the same cores, where a spinning thread pool per
+    worker made these tests ~50x slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -73,21 +85,38 @@ def test_paged_scheduler_matches_reference(pair, spec_k):
         assert ts.stats["spec_accepted"] > 0
 
 
-def test_serve_local_runs_the_paged_path():
-    """The user's entry point, on the CPU at the reduced size."""
+def test_serve_local_runs_the_paged_path(tmp_path):
+    """The user's entry point, on the CPU at the reduced size: the paged
+    path without and with the prefix cache, the contiguous path, and a
+    session that saves and restores."""
+    from repro_torch.api.session import ResilienceSession
+    from repro_torch.cluster.topology import VirtualCluster
+
     cfg = ServeConfig(prefix=False, device="cpu", slots=2, max_len=MAX_LEN,
                       page_tokens=PT, spec_k=2)
-    with Serve.local(cfg) as srv:
-        sids = [srv.submit(p, max_new=MAX_NEW) for p in prompts(512)]
-        srv.run()
-        assert all(len(srv.output(s)) == MAX_NEW for s in sids)
-        assert srv.scheduler.pool.used_pages() == 0
-    for bad, match in ((dict(prefix=True), "prefix"),
-                       (dict(paged=False, spec_k=0), "paged")):
-        with pytest.raises(NotImplementedError, match=match):
-            Serve.local(dataclasses.replace(cfg, **bad))
-    with pytest.raises(NotImplementedError, match="session"):
-        Serve.local(cfg, session=object())
+    outs = {}
+    for name, over in (("paged", {}), ("prefix", dict(prefix=True)),
+                       ("contiguous", dict(paged=False, spec_k=0))):
+        with Serve.local(dataclasses.replace(cfg, **over)) as srv:
+            sids = [srv.submit(p, max_new=MAX_NEW) for p in prompts(512)]
+            srv.run()
+            assert all(len(srv.output(s)) == MAX_NEW for s in sids)
+            outs[name] = [srv.output(s) for s in sids]
+            if name == "paged":
+                assert srv.scheduler.pool.used_pages() == 0
+    # greedy decode of the same weights: every path emits the same tokens
+    assert outs["prefix"] == outs["paged"] == outs["contiguous"]
+    cluster = VirtualCluster(4, 4, root=tmp_path)
+    with ResilienceSession.for_cluster(cluster, procs_per_node=2) as session:
+        with Serve.local(cfg, session=session) as srv:
+            sids = [srv.submit(p, max_new=MAX_NEW) for p in prompts(512)]
+            srv.run(max_steps=3)
+            srv.save()
+        with Serve.local(cfg, session=session) as srv:
+            srv.restore()
+            srv.run()
+            assert [srv.output(s) for s in sids] == outs["paged"]
+    cluster.teardown()
 
 
 def test_ngram_proposer_copy_proposes_identically():
