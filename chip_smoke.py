@@ -5,11 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its serving path (paged, resilient and contiguous) with
-full-width, full-depth phi3-mini-3.8b and
+full-width, full-depth phi3-mini-3.8b, minicpm3-4b (MLA, paged) and
+deepseek-moe-16b (MoE, contiguous), and
 its training-and-recovery path with full-width phi3-mini-3.8b cut to 2
-layers, rwkv6-3b cut to 2 and zamba2-2.7b cut to 6 (random weights from
-a seed).  Phases, each of which raises on a
-failed check:
+layers, rwkv6-3b cut to 2, zamba2-2.7b cut to 6, minicpm3-4b cut to 2 and
+deepseek-moe-16b cut to 2 (random weights from a seed).  Phases, each of
+which raises on a failed check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, TF32 off, and the kernels' build time;
@@ -50,9 +51,10 @@ failed check:
    memory (ptxas) and their HGMMA / UTMALDG counts (cuobjdump -sass), none
    without HGMMA; two bf16 forward and backward launches at phi3's
    training shape bit-identical; the kernel path refuses prefix_len != 0
-   and causal Tq > Tk; then forward and backward times at both training shapes
-   (B 4, T 512, bf16: phi3 heads, and zamba2's shared block at D 80,
-   recorded under ``at_head_dim_80``) beside their bounds, the plain
+   and causal Tq > Tk; then forward and backward times at three training
+   shapes (B 4, T 512, bf16: phi3 heads, zamba2's shared block at D 80 and
+   deepseek-moe-16b's 16 heads of 128, recorded under ``at_head_dim_80``
+   and ``at_head_dim_128``) beside their bounds, the plain
    version's and ``scaled_dot_product_attention``'s pinned to its flash
    backend;
 7. the XOR kernel against its plain version, R = 2, 4, 8, byte-exact;
@@ -114,7 +116,38 @@ failed check:
    full depth) with pager and prefix cache, uninterrupted and through
    the same kill and restore: the same tokens, parks and resumes through
    the pager, no paged launch, one plain decode attention call per
-   layer per slot per step and per prefill token.
+   layer per slot per step and per prefill token;
+14. minicpm3-4b (MLA: qk heads of 96, v heads of 64): (a) the flash
+   kernels with V of its own width against their plain version, forward
+   and backward, f32 and bf16, the f32 gradients also against float64,
+   at minicpm3's training shape (B 4, T 512, 40 heads) and two odd ones
+   (Tq 100 > Tk 77 non-causal and Tq 77 < Tk 100 causal, 8 query heads
+   over 2); the (96, 64) instantiations' registers and spills; their
+   times beside (96, 96) at the same shape, the bound and the fastest
+   SDPA backend that takes Dv != D; (b) a full-depth (62 layers) bf16
+   prefill, one flash launch per layer, no plain call; (c) the float32
+   forward through the kernels against the plain path; (d) ``Trainer``
+   at published width cut to 2 layers (PARTNER, node 3 killed at step 6
+   of 8): one recovery, a falling loss, 2 forward and 3 backward flash
+   launches per layer per step, the uninterrupted run's state bytes;
+   (e) ``Serve.local`` paged with the prefix cache at full size (4
+   slots, page 16, 8 requests of 16-48 tokens sharing a 16-token page,
+   16 new tokens): spec_k=3 and spec_k=0 emit identical tokens, with no
+   kernel launch (MLA decodes in latent space with plain einsums, as
+   the reference does);
+15. deepseek-moe-16b (28 layers, the first dense; 64 routed experts,
+   top-6, 2 shared): (a) a full-depth bf16 prefill from the float32
+   weights (28 flash launches, peak memory reported); (b) the float32
+   kernel path against the plain path at 2 layers; (c) training at
+   published width cut to 2 layers (one dense, one MoE), twice,
+   uninterrupted, under deterministic algorithms: the same final state
+   bytes, a falling loss, ``router_aux`` reported, flash launches
+   counted; (d) ``Serve.local(paged=False)`` with the prefix cache at
+   full size (2 slots, 4 requests of 16-32 tokens, 8 new tokens), then
+   the same through a serving save, a node kill and a restore into a
+   fresh ``Serve.local``: the same tokens; tok/s, and the batch-1 decode
+   step (every expert read, the reference's design) by CUDA events
+   against the time to read its weights.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -241,7 +274,8 @@ WKV6_GOAL_MS = {"wkv6_fwd": 0.060, "wkv6_bwd": 0.150}
 BELOW_CLIP_SHAPE = (1, 77, 2, 64)
 # phases 11-12: the recurrent families at published width; training cuts
 # the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
-FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6}, batch=4, seq=512,
+FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6, "minicpm3-4b": 2,
+                      "deepseek-moe-16b": 2}, batch=4, seq=512,
               steps=8, ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3,
               warmup=4)
 # kernel path vs plain path of a whole float32 forward: 1.6e-5 measured on
@@ -310,11 +344,12 @@ def check_split(name, got, want, rows):
 SLEEP_HZ = 2.0e9
 
 
-def time_ms(fn, iters=100, warmup=10) -> float:
+def time_ms(fn, iters=100, warmup=10, max_sleep_s=0.5) -> float:
     """Mean ms of ``fn`` by CUDA events over ``iters`` calls.  The calls
     are queued behind a sleep on the card that outlasts twice their launch
-    time on the host (taken over the warm-up), so that the events time the
-    card's work, not the host's rate of launching it."""
+    time on the host (taken over the warm-up; at most ``max_sleep_s``), so
+    that the events time the card's work, not the host's rate of launching
+    it (as long as ``fn`` never waits for the card)."""
     t0 = time.perf_counter()
     for _ in range(warmup):
         fn()
@@ -322,7 +357,7 @@ def time_ms(fn, iters=100, warmup=10) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(min(2 * iters * host_s + 1e-3, 0.5) * SLEEP_HZ))
+    torch.cuda._sleep(int(min(2 * iters * host_s + 1e-3, max_sleep_s) * SLEEP_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -915,13 +950,16 @@ def phase4(prompts) -> None:
 # ---------------------------------------------------------------------- #
 
 
-def flash_inputs(b, tq, tk, hq, hkv, d, dtype, seed=SEED):
+def flash_inputs(b, tq, tk, hq, hkv, d, dtype, seed=SEED, dv=None):
+    """q, k, v and dO; v and dO are ``dv`` wide (default: d)."""
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    dv = d if dv is None else dv
 
     def mk(*shape):
         return torch.randn(*shape, generator=gen, device=DEVICE).to(dtype)
 
-    return mk(b, tq, hq, d), mk(b, tk, hkv, d), mk(b, tk, hkv, d), mk(b, tq, hq, d)
+    return (mk(b, tq, hq, d), mk(b, tk, hkv, d), mk(b, tk, hkv, dv),
+            mk(b, tq, hq, dv))
 
 
 def flash_grads(q, k, v, dout, use_kernel, causal=True):
@@ -931,20 +969,24 @@ def flash_grads(q, k, v, dout, use_kernel, causal=True):
     return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
 
 
-def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward) -> tuple:
+def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward, dv=None) -> tuple:
     """Least time for one call: q, k, v (and o, dO for the backward) read
     once, o or dq, dk, dv written once, plus the f32 log-sum-exp; against
     2 flops per multiply-add over the causal (query, key) pairs this run
-    has (2 products forward, 5 backward) at the inputs' peak rate."""
+    has (forward: Q K^T over d and P V over dv; backward: Q K^T, dS K and
+    dS^T Q over d, dO V^T and P^T dO over dv) at the inputs' peak rate."""
+    dv = d if dv is None else dv
     pairs = sum(min(tk, i + 1 + tk - tq) for i in range(tq))
-    q_bytes, kv_bytes = b * tq * hq * d * elem, b * tk * hkv * d * elem
+    q_bytes, k_bytes = b * tq * hq * d * elem, b * tk * hkv * d * elem
+    o_bytes, v_bytes = b * tq * hq * dv * elem, b * tk * hkv * dv * elem
     lse = b * hq * tq * 4
     if backward:
-        nbytes = 3 * q_bytes + 2 * kv_bytes + lse + q_bytes + 2 * kv_bytes
-        flops = 5 * 2 * b * hq * pairs * d
+        nbytes = (q_bytes + k_bytes + v_bytes + 2 * o_bytes + lse    # read
+                  + q_bytes + k_bytes + v_bytes)                     # written
+        flops = 2 * b * hq * pairs * (3 * d + 2 * dv)
     else:
-        nbytes = q_bytes + 2 * kv_bytes + q_bytes + lse
-        flops = 2 * 2 * b * hq * pairs * d
+        nbytes = q_bytes + k_bytes + v_bytes + o_bytes + lse
+        flops = 2 * b * hq * pairs * (d + dv)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_OPS["bfloat16" if elem == 2 else "float32"]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
@@ -967,7 +1009,7 @@ def flash_sass() -> dict:
     HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's SASS.
     Raises if a kernel has no HGMMA: the route would not be on the tensor
     cores."""
-    name = re.compile(r"hopper\d+(fwd_kernel|dq_kernel|dkdv_kernel)ILi(\d+)E")
+    name = re.compile(r"hopper\d+(fwd_kernel|dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E")
     log = _build.build_log.get("flash_attention")
     if log is None:
         raise AssertionError("no ptxas report: flash_attention.cu was not built "
@@ -976,7 +1018,7 @@ def flash_sass() -> dict:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = name.search(line)
-            cur = f"{m[1]}<{m[2]}>" if m else None
+            cur = f"{m[1]}<{m[2]},{m[3]}>" if m else None
             if cur:
                 report[cur] = {"HGMMA": 0, "UTMALDG": 0}
         elif cur and "spill stores" in line:
@@ -991,21 +1033,22 @@ def flash_sass() -> dict:
     for line in sass.splitlines():
         if "Function :" in line:
             m = name.search(line)
-            cur = f"{m[1]}<{m[2]}>" if m else None
+            cur = f"{m[1]}<{m[2]},{m[3]}>" if m else None
         elif cur:
             report[cur]["HGMMA"] += " HGMMA." in line
             report[cur]["UTMALDG"] += " UTMALDG." in line
     lib = _build.library("flash_attention")
     for key, entry in report.items():
-        kind, d = key[:-1].split("<")
+        kind, dims = key[:-1].split("<")
+        d, dv = map(int, dims.split(","))
         entry["dynamic_smem_bytes"] = lib.repro_flash_bf16_smem(
-            ("fwd_kernel", "dq_kernel", "dkdv_kernel").index(kind), int(d))
+            ("fwd_kernel", "dq_kernel", "dkdv_kernel").index(kind), d, dv)
         say(f"  {key}: {entry['registers']} registers, spill stores "
             f"{entry['spill_stores']} B / loads {entry['spill_loads']} B, "
             f"{entry['dynamic_smem_bytes']} B dynamic shared memory; SASS "
             f"HGMMA {entry['HGMMA']}, UTMALDG {entry['UTMALDG']}")
-    want = {f"{k}<{d}>" for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")
-            for d in fa.BF16_HEAD_DIMS}
+    want = {f"{k}<{d},{dv}>" for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")
+            for d, dv in fa.BF16_PAIRS}
     if set(report) != want:
         raise AssertionError(f"bf16 flash kernels in the build: {sorted(report)}, "
                              f"want {sorted(want)}")
@@ -1091,15 +1134,17 @@ def phase6() -> dict:
         raise AssertionError(f"the bf16 flash kernels did not repeat: {same}")
     del q, k, v, dout, fwd, bwd
 
-    # times at the two training shapes, bf16: phi3's (phase 8) and zamba2's
-    # shared block (phase 12, D 80); the first fills the entry's keys.  The
-    # yardstick is SDPA pinned to its flash backend, forward and backward.
+    # times at the training shapes, bf16: phi3's (phase 8), zamba2's shared
+    # block (phase 12, D 80) and deepseek-moe-16b's (phase 15, D 128); the
+    # first fills the entry's keys.  The yardstick is SDPA pinned to its
+    # flash backend, forward and backward.
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     flash_backend = functools.partial(sdpa_kernel, SDPBackend.FLASH_ATTENTION)
     b, t = TRAIN["batch"], TRAIN["seq"]
     rec = {}
-    for label, h, d in (("phi3", 32, 96), ("zamba2-2.7b shared block", 32, 80)):
+    for label, h, d in (("phi3", 32, 96), ("zamba2-2.7b shared block", 32, 80),
+                        ("deepseek-moe-16b", 16, 128)):
         q, k, v, dout = flash_inputs(b, t, t, h, h, d, bf16)
         out, lse = fa.flash_attention_fwd(q, k, v)
         qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
@@ -1142,7 +1187,7 @@ def phase6() -> dict:
                     "design": "wgmma+tma",
                     "launches": 0, "max_abs_err": errs[name], **times}
             else:
-                rec[name]["at_head_dim_80"] = times
+                rec[name][f"at_head_dim_{d}"] = times
             say(f"  {name} at {label}'s training shape (D {d}): kernel "
                 f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa/flash "
                 f"{library_ms:.5f} ms, bound {bound:.5f} ms ({bound_by})")
@@ -1889,7 +1934,7 @@ def clean_sha(cfg, model) -> tuple:
                          seq_len=FAMILY["seq"], seed=SEED)
     step = make_train_step(cfg, model, AdamWConfig(
         lr=FAMILY["lr"], warmup_steps=FAMILY["warmup"]))
-    losses, walls = [], []
+    losses, walls, auxes = [], [], []
     for _ in range(FAMILY["steps"]):
         batch = {k: torch.from_numpy(v).to(DEVICE)
                  for k, v in pipe.next_batch().items()}
@@ -1897,10 +1942,12 @@ def clean_sha(cfg, model) -> tuple:
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
         walls.append(time.perf_counter() - t0)
+        if "router_aux" in metrics:
+            auxes.append(float(metrics["router_aux"]))
     manifest = serialize_state_stream(state_to_numpy(state)).manifest
     del state
     release()
-    return manifest, losses, walls
+    return manifest, losses, walls, auxes
 
 
 def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
@@ -1925,7 +1972,7 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
             f"without a global flush, IntervalPolicy({FAMILY['ckpt_every']}), "
             f"node {FAMILY['fail_rank']} killed at step {FAMILY['fail_step']}; "
             f"free disk {shutil.disk_usage(tmp).free} bytes")
-        clean, clean_losses, clean_walls = clean_sha(cfg, model)
+        clean, clean_losses, clean_walls, _ = clean_sha(cfg, model)
         walls = sorted(clean_walls[1:])
         say(f"  uninterrupted (no checkpoints): loss {clean_losses[0]:.4f} -> "
             f"{clean_losses[-1]:.4f}; step median {1e3 * walls[len(walls) // 2]:.1f}"
@@ -1964,6 +2011,10 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
     steps = report.steps_run
     groups = layers // max(1, cfg.attn_every) if cfg.attn_every else 0
     want = {kernels[0]: 2 * layers * steps, kernels[1]: layers * steps}
+    if kernels[0] == "flash_attention_fwd":
+        # attention in every layer: 2 forward launches (remat) and one
+        # backward pass of 3 launches per layer per step
+        want[kernels[1]] = 3 * layers * steps
     if groups:
         want["flash_attention_fwd"] = groups * steps
         want["flash_attention_bwd"] = 3 * groups * steps
@@ -2269,6 +2320,400 @@ def phase13(kernels: dict) -> dict:
     return summary
 
 
+# ---------------------------------------------------------------------- #
+# phase 14: minicpm3-4b (MLA) and the flash kernels with Dv != D
+# ---------------------------------------------------------------------- #
+
+# minicpm3's MLA heads: qk 96 (64 nope + 32 rope), v 64, 40 heads
+MLA_D, MLA_DV, MLA_HEADS = 96, 64, 40
+MLA_SHAPES = {   # b, tq, tk, hq, hkv, causal; the first is the training shape
+    f"minicpm3-4b B={TRAIN['batch']} T={TRAIN['seq']} (H=40, D=96, Dv=64)": (
+        TRAIN["batch"], TRAIN["seq"], TRAIN["seq"], MLA_HEADS, MLA_HEADS, True),
+    # non-causal, Tq != Tk, g = 4, ragged T
+    "non-causal Tq=100 > Tk=77, Hq=8 over Hkv=2": (2, 100, 77, 8, 2, False),
+    "causal Tq=77 < Tk=100, Hq=8 over Hkv=2": (2, 77, 100, 8, 2, True),
+}
+# phase 14 (e): full-size minicpm3-4b served paged with the prefix cache
+MLA_SERVE = dict(arch="minicpm3-4b", full_size=True, prefix=True, slots=4,
+                 max_len=80, page_tokens=16, quantum=4, device=DEVICE)
+MLA_REQUESTS = dict(n=8, system=16, own=(0, 32), max_new=16)
+
+
+def sdpa_dv_ms(q, k, v, dout, causal, scale) -> dict:
+    """SDPA on the same inputs (no repeat: Hq = Hkv), each backend pinned
+    in turn; the fastest that takes Dv != D, forward and backward, by
+    CUDA events, with every backend's times and refusals printed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dt = dout.transpose(1, 2)
+    best = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        name = f"sdpa/{backend.name.lower().replace('_attention', '')}"
+        try:
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                     scale=scale)
+                fwd = time_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, scale=scale), iters=20)
+                bwd = time_ms(lambda: torch.autograd.grad(
+                    out, (qt, kt, vt), dt, retain_graph=True), iters=10)
+        except RuntimeError as e:
+            say(f"    {name} refuses Dv != D: {str(e).splitlines()[0][:90]}")
+            continue
+        say(f"    {name}: forward {fwd:.5f} ms, backward {bwd:.5f} ms")
+        for kind, ms in (("fwd", fwd), ("bwd", bwd)):
+            if kind not in best or ms < best[kind][0]:
+                best[kind] = (ms, name)
+        del out
+    if len(best) != 2:
+        raise AssertionError("no SDPA backend took Dv != D")
+    return best
+
+
+def phase14_kernels(sass: dict) -> dict:
+    """(a): the flash kernels with V of its own width against their plain
+    version (forward and backward, f32 and bf16, the f32 gradients also
+    against float64), the (96, 64) instantiations' build report, and the
+    times at minicpm3's training shape beside (96, 96) at the same shape,
+    the bound and SDPA."""
+    say("  (a) the flash kernels with Dv != D against their plain version")
+    f32, bf16 = torch.float32, torch.bfloat16
+    scale = MLA_D ** -0.5
+    errs = {"fwd": 0.0, "bwd": 0.0}
+    for label, (b, tq, tk, hq, hkv, causal) in MLA_SHAPES.items():
+        for dtype in (f32, bf16):
+            tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            tag = f"{label} {str(dtype)[6:]}"
+            q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, MLA_D, dtype,
+                                         dv=MLA_DV)
+            got = flash_grads(q, k, v, dout, None, causal)
+            want = flash_grads(q, k, v, dout, False, causal)
+            if tuple(got[0].shape) != (b, tq, hq, MLA_DV) or \
+                    tuple(got[3].shape) != (b, tk, hkv, MLA_DV):
+                raise AssertionError(f"{tag}: out {tuple(got[0].shape)}, dV "
+                                     f"{tuple(got[3].shape)} are not Dv wide")
+            errs["fwd"] = max(errs["fwd"], check_close(
+                f"flash fwd {tag}", got[0], want[0], **tol))
+            for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+                errs["bwd"] = max(errs["bwd"], check_close(
+                    f"flash bwd {name} {tag}", g, w, **bwd_tol))
+            if dtype == f32:
+                exact = flash_grads(q.double(), k.double(), v.double(),
+                                    dout.double(), False, causal)
+                dist = lambda xs: max((x.double() - e).abs().max().item()
+                                      for x, e in zip(xs, exact[1:]))
+                kern_d, plain_d = dist(got[1:]), dist(want[1:])
+                say(f"    distance to float64, dQ/dK/dV: kernel {kern_d:.3e}, "
+                    f"plain {plain_d:.3e} (limit max(plain, {FLASH_F64_ATOL}))")
+                if kern_d > max(plain_d, FLASH_F64_ATOL):
+                    raise AssertionError(f"flash bwd {tag}: the kernel lies "
+                                         f"{kern_d:.3e} from float64")
+                del exact
+            del q, k, v, dout, got, want
+            release()
+    pair = f"<{MLA_D},{MLA_DV}>"
+    ptxas = {k: v for k, v in sass.items() if k.endswith(pair)}
+    for key, e in ptxas.items():
+        say(f"  {key}: {e['registers']} registers, spill stores "
+            f"{e['spill_stores']} B / loads {e['spill_loads']} B, "
+            f"{e['dynamic_smem_bytes']} B dynamic shared memory")
+
+    b, t = TRAIN["batch"], TRAIN["seq"]
+    h = MLA_HEADS
+    q, k, v, dout = flash_inputs(b, t, t, h, h, MLA_D, bf16, dv=MLA_DV)
+    q96, k96, v96, dout96 = flash_inputs(b, t, t, h, h, MLA_D, bf16)
+    out, lse = fa.flash_attention_fwd(q, k, v, scale=scale)
+    out96, lse96 = fa.flash_attention_fwd(q96, k96, v96, scale=scale)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    plain_out = ref.flash_attention(qr, kr, vr, scale=scale)
+    say(f"  SDPA at minicpm3's training shape (D {MLA_D}, Dv {MLA_DV}):")
+    lib = sdpa_dv_ms(q, k, v, dout, True, scale)
+    rec = {}
+    for kind in ("fwd", "bwd"):
+        if kind == "fwd":
+            kern = lambda: fa.flash_attention_fwd(q, k, v, scale=scale)
+            square = lambda: fa.flash_attention_fwd(q96, k96, v96, scale=scale)
+            plain = lambda: ref.flash_attention(q, k, v, scale=scale)
+        else:
+            kern = lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                  scale=scale)
+            square = lambda: fa.flash_attention_bwd(q96, k96, v96, out96, lse96,
+                                                    dout96, scale=scale)
+            plain = lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout,
+                                                retain_graph=True)
+        # (96, 64) and (96, 96) in turns, twice each
+        ms, sq = [], []
+        for _ in range(2):
+            ms.append(time_ms(kern, iters=50))
+            sq.append(time_ms(square, iters=50))
+        plain_ms = time_ms(plain, iters=10, warmup=2)
+        bound, bound_by = flash_bound_ms(b, t, t, h, h, MLA_D, 2,
+                                         backward=kind == "bwd", dv=MLA_DV)
+        name = f"flash_attention_{kind}"
+        rec[name] = {"ms": min(ms), "kernel_ms": min(ms), "ms_runs": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound,
+                     "bound_by": bound_by, "library_ms": lib[kind][0],
+                     "library": lib[kind][1], "max_abs_err": errs[kind],
+                     "square_96_ms": min(sq), "square_96_ms_runs": sq,
+                     "shape": {"B": b, "T": t, "Hq": h, "Hkv": h, "D": MLA_D,
+                               "Dv": MLA_DV, "dtype": "bfloat16",
+                               "causal": True},
+                     "sass": {k: v for k, v in ptxas.items()
+                              if (k.startswith("fwd") == (kind == "fwd"))}}
+        say(f"  {name} (96, 64) at minicpm3's training shape: kernel "
+            f"{min(ms):.5f} ms (runs {', '.join(f'{x:.5f}' for x in ms)}); "
+            f"(96, 96) at the same B, T, H {min(sq):.5f} ms; plain "
+            f"{plain_ms:.5f} ms; {lib[kind][1]} {lib[kind][0]:.5f} ms; bound "
+            f"{bound:.5f} ms ({bound_by})")
+    del q, k, v, dout, q96, k96, v96, dout96, out, lse, out96, lse96
+    del qr, kr, vr, plain_out
+    release()
+    return rec
+
+
+def mla_requests(vocab: int):
+    rng = np.random.default_rng(SEED + 14)
+    r = MLA_REQUESTS
+    system = rng.integers(0, vocab, size=r["system"]).tolist()
+    lo, hi = r["own"]
+    return [system + rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
+                                  ).tolist() for _ in range(r["n"])]
+
+
+def phase14(sass: dict) -> dict:
+    say("== phase 14: minicpm3-4b (MLA): the flash kernels with Dv != D, "
+        "full-depth prefill, training with a node kill, paged serving")
+    t_phase = time.perf_counter()
+    out = {"kernels": phase14_kernels(sass)}
+    # (b) full-depth prefill, (c) float32 kernel path, (d) training
+    out["family"] = phase_family(14, "minicpm3-4b",
+                                 ("flash_attention_fwd", "flash_attention_bwd"))
+
+    # (e) paged serving of full-size minicpm3-4b, spec_k 3 and 0
+    arch = get_config(MLA_SERVE["arch"])
+    prompts = mla_requests(arch.vocab_size)
+    say(f"  (e) Serve.local, paged, prefix cache: {len(prompts)} requests of "
+        f"{[len(x) for x in prompts]} tokens ({MLA_REQUESTS['system']} shared), "
+        f"max_new={MLA_REQUESTS['max_new']}; slots {MLA_SERVE['slots']}, "
+        f"max_len {MLA_SERVE['max_len']}, page {MLA_SERVE['page_tokens']}")
+    runs = {}
+    for spec_k in (3, 0):
+        reset_family_launches()
+        with counting_calls([(ref, "flash_attention")]) as plain:
+            runs[spec_k] = resilient_run(
+                f"spec_k={spec_k}", ServeConfig(spec_k=spec_k, **MLA_SERVE),
+                prompts, MLA_REQUESTS["max_new"])
+        launches = family_launches()
+        if any(launches.values()) or runs[spec_k]["launches"] or any(plain.values()):
+            raise AssertionError(f"MLA serving launched {launches}, paged "
+                                 f"{runs[spec_k]['launches']}, plain flash "
+                                 f"{plain}: its decode attends in latent space")
+    if runs[3]["outs"] != runs[0]["outs"]:
+        raise AssertionError("minicpm3-4b: spec_k=3 and spec_k=0 emitted "
+                             "different tokens")
+    t3 = runs[3]["total"]
+    if t3["prefix_hits"] <= 0:
+        raise AssertionError("minicpm3-4b serving: no prefix hit")
+    say("  (e) spec_k=3 and spec_k=0 emitted identical tokens (latent-space "
+        "decode: plain einsums, no kernel launch)")
+    serve = {}
+    for spec_k, r in runs.items():
+        n_tok = sum(len(o) for o in r["outs"])
+        serve[f"spec_k={spec_k}"] = {
+            "tokens": n_tok, "wall_s": r["wall"], "tok_per_s": n_tok / r["wall"],
+            "token_iterations": r["iters"], "steps": r["total"]["steps"],
+            "spec_accepted": r["total"].get("spec_accepted", 0),
+            "prefix_hits": r["total"]["prefix_hits"], "peak_gib": r["peak_gib"],
+            "digest": hashlib.sha256(json.dumps(r["outs"]).encode()
+                                     ).hexdigest()[:16]}
+    out["serve"] = serve
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 14 record: {json.dumps(serve)}; took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 15: deepseek-moe-16b (MoE)
+# ---------------------------------------------------------------------- #
+
+MOE_ARCH = "deepseek-moe-16b"
+MOE_SERVE = dict(arch=MOE_ARCH, full_size=True, paged=False, prefix=True,
+                 slots=2, max_len=48, page_tokens=16, quantum=2, device=DEVICE)
+# 4 requests of 16-32 prompt tokens: a shared 16-token page, then 0-16
+# of their own
+MOE_REQUESTS = dict(n=4, system=16, own=(0, 16), max_new=8)
+
+
+def moe_train_twice(cfg, model) -> dict:
+    """(c): two uninterrupted training runs under deterministic algorithms,
+    each with the flash kernels' launches counted from zero and the plain
+    attention's calls counted; their final states must be the same bytes."""
+    n_params = sum(p.numel() for p in tree_leaves(model.param_shapes(cfg)))
+    say(f"  (c) training: published width, depth cut "
+        f"{get_config(cfg.name).n_layers} -> {cfg.n_layers} layers (1 dense, "
+        f"{cfg.n_layers - cfg.moe.n_dense_layers} MoE), {n_params} parameters "
+        f"({3 * 4 * n_params} bytes of params + m + v); B {FAMILY['batch']} x T "
+        f"{FAMILY['seq']}, {FAMILY['steps']} steps, twice, deterministic "
+        f"algorithms")
+    torch.use_deterministic_algorithms(True)
+    runs = []
+    try:
+        for i in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            reset_family_launches()
+            with counting_calls([(ref, "flash_attention")]) as plain:
+                manifest, losses, walls, auxes = clean_sha(cfg, model)
+            launches = family_launches()
+            runs.append((manifest, losses, walls, auxes, launches, dict(plain),
+                         torch.cuda.max_memory_allocated()))
+            steps = sorted(walls[1:])
+            say(f"  run {i + 1}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+                f"router_aux {[round(a, 5) for a in auxes]}; step median "
+                f"{1e3 * steps[len(steps) // 2]:.1f} ms (first "
+                f"{1e3 * walls[0]:.1f} ms); flash launches "
+                f"{launches['flash_attention_fwd']} / "
+                f"{launches['flash_attention_bwd']}; plain calls {plain}; "
+                f"peak {runs[-1][6] / 2**30:.3f} GiB; sha256 "
+                f"{manifest['sha256'][:16]}..")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (m1, l1, _, a1, n1, p1, _), (m2, *_rest) = runs
+    want = {"flash_attention_fwd": 2 * cfg.n_layers * FAMILY["steps"],
+            "flash_attention_bwd": 3 * cfg.n_layers * FAMILY["steps"]}
+    for r in runs:
+        if {k: r[4][k] for k in want} != want or any(r[5].values()):
+            raise AssertionError(f"flash launches {r[4]} (want {want}), plain "
+                                 f"calls {r[5]}")
+    if not l1[-1] < l1[0]:
+        raise AssertionError("the loss did not fall")
+    if (m1["sha256"], m1["total_bytes"]) != (m2["sha256"], m2["total_bytes"]):
+        raise AssertionError("two deterministic runs ended on different state "
+                             "bytes")
+    say(f"  both runs' final states byte-identical: sha256 "
+        f"{m1['sha256'][:16]}.. over {m1['total_bytes']} bytes")
+    steps = sorted(runs[0][2][1:])
+    return {"launches": n1, "router_aux": a1, "losses": l1,
+            "step_ms": 1e3 * steps[len(steps) // 2], "sha256": m1["sha256"],
+            "state_bytes": m1["total_bytes"], "peak_bytes": runs[0][6],
+            "main_path": {"arch": cfg.name, "layers": cfg.n_layers,
+                          "layers_published": get_config(cfg.name).n_layers,
+                          "batch": FAMILY["batch"], "seq": FAMILY["seq"],
+                          "steps_run": FAMILY["steps"]}}
+
+
+def moe_slot_step(cfg: ServeConfig) -> dict:
+    """The contiguous path's unit of work, one batch-1 ``decode_step`` of
+    the full model as served (bf16 weights): its device time (the sum of
+    its kernels' durations in a profiler trace; not measured where the
+    profiler returns no records), its host-clock time, and CUDA events over
+    calls queued behind a sleep (a step launches more kernels than the
+    card's launch queue holds, so the host's launch rate shows in them),
+    beside the least time to read the weights it reads (every leaf but the
+    embedding table, of which one row)."""
+    srv = Serve.local(cfg)
+    arch, model, params = srv.arch, srv.model, srv.scheduler.params
+    lane = model.init_cache(arch, 1, cfg.max_len, device=DEVICE)
+    tok = torch.tensor([1], device=DEVICE)
+    nbytes = sum(x.numel() * x.element_size() for x in tree_leaves(params))
+    embed = params["embed"]
+    nbytes += embed[0].numel() * embed.element_size() - embed.numel() * embed.element_size()
+    step = lambda: model.decode_step(params, lane, tok, 5, arch)
+    with torch.inference_mode():
+        events_ms = time_ms(step, iters=10, warmup=2, max_sleep_s=5.0)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            step()
+        torch.cuda.synchronize()
+        host_ms = 1e3 * (time.perf_counter() - t0) / 5
+        try:
+            dev = device_time(step, reps=3, traces=3)
+            dev_ms, dev_launches = dev.ms, dev.launches
+        except AssertionError as e:   # the profiler returned no records
+            dev_ms = dev_launches = None
+            say(f"  (device trace: {e}; reported as not measured)")
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    srv.close()
+    del srv, params, lane, model
+    release()
+    share = "not measured" if dev_ms is None else f"{bound / dev_ms:.1%}"
+    say(f"  one slot-step (batch-1 decode_step, {arch.n_layers} layers, every "
+        f"expert): {dev_ms} ms of kernels on the card in a trace "
+        f"({dev_launches} device activities; the bound is {share} of it), "
+        f"{host_ms:.3f} ms on the host clock, {events_ms:.3f} ms by queued "
+        f"CUDA events (held to the host's launch rate); weight reads {nbytes} "
+        f"bytes, bound {bound:.3f} ms")
+    return {"ms": dev_ms, "launches": dev_launches, "host_ms": host_ms,
+            "events_ms": events_ms, "bound_ms": bound, "weight_bytes": nbytes}
+
+
+def phase15() -> dict:
+    say(f"== phase 15: {MOE_ARCH} (MoE): full-depth prefill, training twice, "
+        "contiguous serving with a save and restore")
+    t_phase = time.perf_counter()
+    out = {"prefill": prefill_full_depth(MOE_ARCH, ("flash_attention_fwd",))}
+    cfg = dataclasses.replace(get_config(MOE_ARCH),
+                              n_layers=FAMILY["layers"][MOE_ARCH])
+    model = get_model(cfg)
+    out["f32_logits_err"] = check_kernel_path_f32(cfg, model)
+    out["train"] = moe_train_twice(cfg, model)
+
+    # (d) contiguous serving at full size, uninterrupted, then through a
+    # serving save and a restore into a fresh Serve.local
+    serve_cfg = ServeConfig(**MOE_SERVE)
+    rng = np.random.default_rng(SEED + 15)
+    system = rng.integers(0, cfg.vocab_size, size=MOE_REQUESTS["system"]).tolist()
+    lo, hi = MOE_REQUESTS["own"]
+    prompts = [system + rng.integers(0, cfg.vocab_size,
+                                     size=int(rng.integers(lo, hi + 1))).tolist()
+               for _ in range(MOE_REQUESTS["n"])]
+    say(f"  (d) Serve.local(paged=False), prefix cache: {len(prompts)} requests "
+        f"of {[len(x) for x in prompts]} tokens, max_new="
+        f"{MOE_REQUESTS['max_new']}; slots {MOE_SERVE['slots']}, quantum "
+        f"{MOE_SERVE['quantum']}")
+    slot = moe_slot_step(serve_cfg)
+    clean = resilient_run("(d) contiguous", serve_cfg, prompts,
+                          MOE_REQUESTS["max_new"])
+    killed = resilient_run("(d) save and restore", serve_cfg, prompts,
+                           MOE_REQUESTS["max_new"], kill=True)
+    if killed["outs"] != clean["outs"]:
+        raise AssertionError("deepseek-moe-16b: the tokens after a serving "
+                             "restore differ from the uninterrupted run's")
+    t = clean["total"]
+    units = MOE_SERVE["slots"] * t["steps"] + t["prefill_tokens"]
+    n_tok = sum(len(o) for o in clean["outs"])
+    serve = {"tokens": n_tok, "wall_s": clean["wall"],
+             "tok_per_s": n_tok / clean["wall"],
+             "slot_steps": units, "wall_ms_per_slot_step": 1e3 * clean["wall"] / units,
+             "device_ms_per_slot_step": slot["ms"],
+             "device_activities_per_slot_step": slot["launches"],
+             "host_ms_per_slot_step": slot["host_ms"],
+             "events_ms_per_slot_step": slot["events_ms"],
+             "weight_read_bound_ms": slot["bound_ms"],
+             "parked": t["parked"], "resumed": t["resumed"],
+             "prefix_hits": t["prefix_hits"],
+             "peak_gib": clean["peak_gib"], "checkpoint": killed["ckpt"],
+             "digest": hashlib.sha256(json.dumps(clean["outs"]).encode()
+                                      ).hexdigest()[:16]}
+    if t["parked"] <= 0 or t["prefix_hits"] <= 0 or killed["ckpt"] is None \
+            or not killed["ckpt"]["restored_equal"]:
+        raise AssertionError(f"(d) parked {t['parked']}, prefix hits "
+                             f"{t['prefix_hits']}, checkpoint {killed['ckpt']}")
+    say(f"  (d) the same tokens after the save and restore; {n_tok} tokens in "
+        f"{clean['wall']:.3f} s = {serve['tok_per_s']:.2f} tok/s, "
+        f"{serve['wall_ms_per_slot_step']:.2f} ms per slot-step on the host "
+        f"clock ({units} = {MOE_SERVE['slots']} slots x {t['steps']} steps + "
+        f"{t['prefill_tokens']} prefill tokens); one slot-step {slot['ms']} ms "
+        f"on the card against the {slot['bound_ms']:.3f} ms weight-read bound, "
+        f"{slot['host_ms']:.3f} ms on the host clock")
+    out["serve"] = serve
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 15 record: {json.dumps(serve)}; took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -2367,6 +2812,27 @@ def main() -> int:
                 kernels[name]["launches_" + arch] = got["launches"][name]
 
     phase13(kernels)
+
+    sass = {**kernels["flash_attention_fwd"]["sass"],
+            **kernels["flash_attention_bwd"]["sass"]}
+    mla = phase14(sass)
+    moe = phase15()
+    for kind in ("fwd", "bwd"):
+        name = f"flash_attention_{kind}"
+        dv = dict(mla["kernels"][name])
+        kernels[f"{name}_96x64"] = {
+            "name": f"{name}_96x64", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123",
+            "design": "wgmma+tma, V of its own width (D 96, Dv 64)",
+            "launches": mla["family"]["launches"][name],
+            "main_path": mla["family"]["main_path"],
+            "prefill_full_depth_launches": (mla["family"]["prefill"]["layers"]
+                                            if kind == "fwd" else 0),
+            **dv}
+        kernels[name][f"launches_{MOE_ARCH}"] = moe["train"]["launches"][name]
+        kernels[name][f"main_path_{MOE_ARCH}"] = moe["train"]["main_path"]
+    kernels["flash_attention_fwd"][f"prefill_full_depth_{MOE_ARCH}"] = moe["prefill"]
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

@@ -67,10 +67,16 @@
 //     they wait for each product;
 //   - q tiles run longest causal rows first (forward, dQ) and k tiles from
 //     the first key (dK/dV), so the blocks with the most tiles start first.
-//   Head dims 64, 80, 96 and 128 are instantiated; others are refused.
+//   V may be narrower than Q and K, as the TPU kernel's V and output blocks
+//   have their own width dv: the kernels are templated on (D, DV), and every
+//   product over or into V's columns (P V, dO V^T, P^T dO, the delta rows,
+//   V's and dO's tiles and tensor maps, O's and dV's stores) runs at DV while
+//   Q K^T, dS K and dS^T Q keep D.  (D, DV) = (64, 64), (80, 80), (96, 96),
+//   (128, 128) and (96, 64) (MiniCPM3's MLA heads) are instantiated; others
+//   are refused.
 //
 // * float32: exact f32 products on the CUDA cores (tensor cores would round
-//   to TF32).  A block of 4 warps owns 32 query rows (8 per warp); each
+//   to TF32); any D and Dv that are multiples of 8 up to 256.  A block of 4 warps owns 32 query rows (8 per warp); each
 //   32-key tile is staged in shared memory in f32, K transposed with a
 //   padded stride so that lane j reads key j without bank conflicts.  A lane
 //   computes one key's score for its warp's 8 rows; the softmax statistics
@@ -156,14 +162,15 @@ __device__ __forceinline__ void row_dots(float (&acc)[kRows], const float* x_row
 // forward
 // ---------------------------------------------------------------------- //
 
+// NC: 32-column groups of the output (Dv)
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
                  const T* __restrict__ k,   // (B, Tk, Hkv, D)
-                 const T* __restrict__ v,   // (B, Tk, Hkv, D)
-                 T* __restrict__ o,         // (B, Tq, Hq, D)
+                 const T* __restrict__ v,   // (B, Tk, Hkv, Dv)
+                 T* __restrict__ o,         // (B, Tq, Hq, Dv)
                  float* __restrict__ lse,   // (B, Hq, Tq)
-                 int tq, int tk, int hq, int hkv, int d, float scale,
+                 int tq, int tk, int hq, int hkv, int d, int dv, float scale,
                  int causal) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
@@ -176,7 +183,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // (kTile, d) query rows
   float* kt_s = q_s + kTile * d;     // (d, kPad) keys, transposed
-  float* v_s = kt_s + d * kPad;      // (kTile, d) values
+  float* v_s = kt_s + d * kPad;      // (kTile, dv) values
 
   stage<T, false>(q_s, q, b, q0, tq, h, hq, d);
 
@@ -195,7 +202,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();   // the previous tile's readers are done
     stage<T, true>(kt_s, k, b, k0, tk, hk, hkv, d);
-    stage<T, false>(v_s, v, b, k0, tk, hk, hkv, d);
+    stage<T, false>(v_s, v, b, k0, tk, hk, hkv, dv);
     __syncthreads();
 
     float s[kRows];
@@ -230,7 +237,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const int col = lane + 32 * c;
-        vj[c] = col < d ? v_s[j * d + col] : 0.f;
+        vj[c] = col < dv ? v_s[j * dv + col] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
@@ -251,11 +258,11 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
     const int row = q0 + warp * kRows + i;
     if (row >= tq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
-    T* orow = o + ((static_cast<size_t>(b) * tq + row) * hq + h) * d;
+    T* orow = o + ((static_cast<size_t>(b) * tq + row) * hq + h) * dv;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) store(orow + col, acc[i][c] * inv);
+      if (col < dv) store(orow + col, acc[i][c] * inv);
     }
     if (lane == 0) lse[(static_cast<size_t>(b) * hq + h) * tq + row] = m[i] + logf(l[i]);
   }
@@ -265,7 +272,8 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
 // backward
 // ---------------------------------------------------------------------- //
 
-// delta[b, h, t] = dO[b, t, h] . O[b, t, h]: one warp per row
+// delta[b, h, t] = dO[b, t, h] . O[b, t, h]: one warp per row of d (= Dv)
+// columns
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
@@ -287,13 +295,14 @@ flash_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   }
 }
 
+// NC: 32-column groups of max(D, Dv)
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int tq, int tk, int hq, int hkv, int d,
-                    float scale, int causal) {
+                    int dv, float scale, int causal) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -304,12 +313,12 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   extern __shared__ __align__(16) float smem[];
   float* q_s = smem;                 // (kTile, d)
-  float* do_s = q_s + kTile * d;     // (kTile, d)
-  float* kt_s = do_s + kTile * d;    // (d, kPad)
-  float* vt_s = kt_s + d * kPad;     // (d, kPad)
+  float* do_s = q_s + kTile * d;     // (kTile, dv)
+  float* kt_s = do_s + kTile * dv;   // (d, kPad)
+  float* vt_s = kt_s + d * kPad;     // (dv, kPad)
 
   stage<T, false>(q_s, q, b, q0, tq, h, hq, d);
-  stage<T, false>(do_s, dout, b, q0, tq, h, hq, d);
+  stage<T, false>(do_s, dout, b, q0, tq, h, hq, dv);
 
   float row_lse[kRows], row_delta[kRows], acc[kRows][NC];
 #pragma unroll
@@ -323,18 +332,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int k_end = causal ? min(tk, min(q0 + kTile, tq) + q_offset) : tk;
   const float* my_q = q_s + warp * kRows * d;
-  const float* my_do = do_s + warp * kRows * d;
+  const float* my_do = do_s + warp * kRows * dv;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();
     stage<T, true>(kt_s, k, b, k0, tk, hk, hkv, d);
-    stage<T, true>(vt_s, v, b, k0, tk, hk, hkv, d);
+    stage<T, true>(vt_s, v, b, k0, tk, hk, hkv, dv);
     __syncthreads();
 
     float s[kRows], dp[kRows];
 #pragma unroll
     for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
     row_dots(s, my_q, kt_s, d, lane);
-    row_dots(dp, my_do, vt_s, d, lane);
+    row_dots(dp, my_do, vt_s, dv, lane);
 
     const int k_pos = k0 + lane;
     float ds[kRows];
@@ -388,13 +397,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// NC: 32-column groups of max(D, Dv)
 template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                      int hq, int hkv, int d, float scale, int causal) {
+                      int hq, int hkv, int d, int d_v, float scale, int causal) {
   const int k0 = blockIdx.x * kTile;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -405,12 +415,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                 // (kTile, d) key rows
-  float* v_s = k_s + kTile * d;      // (kTile, d) value rows
-  float* qt_s = v_s + kTile * d;     // (d, kPad) query tile, transposed
-  float* dot_s = qt_s + d * kPad;    // (d, kPad) dO tile, transposed
+  float* v_s = k_s + kTile * d;      // (kTile, d_v) value rows
+  float* qt_s = v_s + kTile * d_v;   // (d, kPad) query tile, transposed
+  float* dot_s = qt_s + d * kPad;    // (d_v, kPad) dO tile, transposed
 
   stage<T, false>(k_s, k, b, k0, tk, hk, hkv, d);
-  stage<T, false>(v_s, v, b, k0, tk, hk, hkv, d);
+  stage<T, false>(v_s, v, b, k0, tk, hk, hkv, d_v);
 
   float dk_acc[kRows][NC], dv_acc[kRows][NC];
 #pragma unroll
@@ -422,13 +432,13 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   // the first query tile that sees any of these keys
   const int q_begin = causal ? max(0, k0 - q_offset) / kTile * kTile : 0;
   const float* my_k = k_s + warp * kRows * d;
-  const float* my_v = v_s + warp * kRows * d;
+  const float* my_v = v_s + warp * kRows * d_v;
   for (int hh = 0; hh < g; ++hh) {
     const int h = hk * g + hh;
     for (int qt0 = q_begin; qt0 < tq; qt0 += kTile) {
       __syncthreads();
       stage<T, true>(qt_s, q, b, qt0, tq, h, hq, d);
-      stage<T, true>(dot_s, dout, b, qt0, tq, h, hq, d);
+      stage<T, true>(dot_s, dout, b, qt0, tq, h, hq, d_v);
       __syncthreads();
 
       const int q_row = qt0 + lane;
@@ -441,7 +451,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
       row_dots(s, my_k, qt_s, d, lane);
-      row_dots(dp, my_v, dot_s, d, lane);
+      row_dots(dp, my_v, dot_s, d_v, lane);
 
       float p[kRows], ds[kRows];
 #pragma unroll
@@ -465,7 +475,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         for (int c = 0; c < NC; ++c) {
           const int col = lane + 32 * c;
           qj[c] = col < d ? qt_s[col * kPad + j] : 0.f;
-          gj[c] = col < d ? dot_s[col * kPad + j] : 0.f;
+          gj[c] = col < d_v ? dot_s[col * kPad + j] : 0.f;
         }
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
@@ -493,14 +503,12 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < kRows; ++i) {
     const int row = k0 + warp * kRows + i;
     if (row >= tk) continue;
-    const size_t off = ((static_cast<size_t>(b) * tk + row) * hkv + hk) * d;
+    const size_t off = (static_cast<size_t>(b) * tk + row) * hkv + hk;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const int col = lane + 32 * c;
-      if (col < d) {
-        store(dk + off + col, dk_acc[i][c] * scale);
-        store(dv + off + col, dv_acc[i][c]);
-      }
+      if (col < d) store(dk + off * d + col, dk_acc[i][c] * scale);
+      if (col < d_v) store(dv + off * d_v + col, dv_acc[i][c]);
     }
   }
 }
@@ -818,15 +826,17 @@ __device__ __forceinline__ uint32_t aligned_base(uint8_t* raw) {
   return (smem_addr(raw) + 1023u) & ~1023u;
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t fwd_smem() {
-  return 1024 + Dims<D>::kBoxes * (kBlockBox + 2 * kFwdStages * kTileBox) + 8 * 8;
+  return 1024 + Dims<D>::kBoxes * kBlockBox +
+         kFwdStages * (Dims<D>::kBoxes + Dims<DV>::kBoxes) * kTileBox + 8 * 8;
 }
 
 // Forward.  Grid (Hq, B, q tiles), the last q tile (the longest causal rows)
 // first.  Warpgroup wg owns rows q0 + 64 wg ...; the producer warp loads Q
-// once and streams K and V tiles through the ring.
-template <int D>
+// once and streams K and V tiles through the ring.  S = Q K^T runs over D,
+// O += P V and the output over DV.
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsH, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
@@ -834,16 +844,17 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq, int tk,
            int hq, int hkv, float scale_log2, int causal) {
   using G = Dims<D>;
+  using GV = Dims<DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t k_stage = G::kBoxes * kTileBox, v_stage = GV::kBoxes * kTileBox;
   const uint32_t q_s = aligned_base(smem_raw);
   const uint32_t k_s = q_s + G::kBoxes * kBlockBox;
-  const uint32_t v_s = k_s + kFwdStages * G::kBoxes * kTileBox;
-  const uint32_t bars = v_s + kFwdStages * G::kBoxes * kTileBox;
+  const uint32_t v_s = k_s + kFwdStages * k_stage;
+  const uint32_t bars = v_s + kFwdStages * v_stage;
   const uint32_t q_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + kFwdStages + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * kFwdStages + s); };
-  const uint32_t stage_bytes = G::kBoxes * kTileBox;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
@@ -871,10 +882,10 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kFwdStages;
         if (i >= kFwdStages) mbar_wait(empty(s), ((i / kFwdStages) & 1) ^ 1);
-        mbar_expect_tx(k_full(s), stage_bytes);
-        tma_rows<D>(k_s + s * stage_bytes, kTileBox, &k_map, k_full(s), hk, i * kTile, b);
-        mbar_expect_tx(v_full(s), stage_bytes);
-        tma_rows<D>(v_s + s * stage_bytes, kTileBox, &v_map, v_full(s), hk, i * kTile, b);
+        mbar_expect_tx(k_full(s), k_stage);
+        tma_rows<D>(k_s + s * k_stage, kTileBox, &k_map, k_full(s), hk, i * kTile, b);
+        mbar_expect_tx(v_full(s), v_stage);
+        tma_rows<DV>(v_s + s * v_stage, kTileBox, &v_map, v_full(s), hk, i * kTile, b);
       }
     }
     return;
@@ -883,11 +894,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int wg = warp / 4;
   const int first = q0 + 64 * wg;                       // the warpgroup's first row
   const int row0 = first + 16 * (warp % 4) + lane / 4;  // this thread's rows: row0, row0 + 8
-  float o0[32], o1[G::kN1 > 0 ? G::kN1 / 2 : 1];
+  float o0[32], o1[GV::kN1 > 0 ? GV::kN1 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o0[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (G::kN1 > 0 ? G::kN1 / 2 : 1); ++i) o1[i] = 0.f;
+  for (int i = 0; i < (GV::kN1 > 0 ? GV::kN1 / 2 : 1); ++i) o1[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -901,7 +912,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     if (live) {
       float sc[32];
       wg_fence();
-      mma_dots<D>(sc, q_s + 64 * wg * kRowBytes, kBlockBox, k_s + s * stage_bytes, kTileBox);
+      mma_dots<D>(sc, q_s + 64 * wg * kRowBytes, kBlockBox, k_s + s * k_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(sc);
@@ -935,7 +946,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         o0[j] *= corr[acc_half(j)];
       }
 #pragma unroll
-      for (int j = 0; j < (G::kN1 > 0 ? G::kN1 / 2 : 0); ++j) o1[j] *= corr[acc_half(j)];
+      for (int j = 0; j < (GV::kN1 > 0 ? GV::kN1 / 2 : 0); ++j) o1[j] *= corr[acc_half(j)];
       uint32_t a[4][4];
       to_a(sc, a);
 
@@ -943,7 +954,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       wg_fence();
       hold(o0);
       hold(o1);
-      mma_rows<D>(o0, o1, a, v_s + s * stage_bytes, kTileBox);
+      mma_rows<DV>(o0, o1, a, v_s + s * v_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(o0);
@@ -959,7 +970,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  store_rows<D>(o, o0, o1, inv, row0, tq, b, hq, h, lane);
+  store_rows<DV>(o, o0, o1, inv, row0, tq, b, hq, h, lane);
   if (lane % 4 == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1012,14 +1023,16 @@ delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restric
   }
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dq_smem() {
-  return 1024 + Dims<D>::kBoxes * (2 * kBlockBox + 2 * kStages * kTileBox) + 8 * 8;
+  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) * (kBlockBox + kStages * kTileBox) +
+         8 * 8;
 }
 
 // dQ.  Grid (Hq, B, q tiles), longest causal rows first; the producer loads
-// Q and dO once and streams K and V tiles up to the diagonal.
-template <int D>
+// Q and dO once and streams K and V tiles up to the diagonal.  S = Q K^T and
+// dQ = dS K run over D, dP = dO V^T over DV.
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsH, 1)
 dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap k_map,
@@ -1029,17 +1042,18 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
           __nv_bfloat16* __restrict__ dq, int tq, int tk, int hq, int hkv,
           float scale, float scale_log2, int causal) {
   using G = Dims<D>;
+  using GV = Dims<DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t k_stage = G::kBoxes * kTileBox, v_stage = GV::kBoxes * kTileBox;
   const uint32_t q_s = aligned_base(smem_raw);
   const uint32_t do_s = q_s + G::kBoxes * kBlockBox;
-  const uint32_t k_s = do_s + G::kBoxes * kBlockBox;
-  const uint32_t v_s = k_s + kStages * G::kBoxes * kTileBox;
-  const uint32_t bars = v_s + kStages * G::kBoxes * kTileBox;
+  const uint32_t k_s = do_s + GV::kBoxes * kBlockBox;
+  const uint32_t v_s = k_s + kStages * k_stage;
+  const uint32_t bars = v_s + kStages * v_stage;
   const uint32_t qd_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
   auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
-  const uint32_t stage_bytes = G::kBoxes * kTileBox;
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
@@ -1062,16 +1076,16 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 8) {   // producer
     if (lane == 0) {
-      mbar_expect_tx(qd_full, 2 * G::kBoxes * kBlockBox);
+      mbar_expect_tx(qd_full, (G::kBoxes + GV::kBoxes) * kBlockBox);
       tma_rows<D>(q_s, kBlockBox, &q_map, qd_full, h, q0, b);
-      tma_rows<D>(do_s, kBlockBox, &do_map, qd_full, h, q0, b);
+      tma_rows<DV>(do_s, kBlockBox, &do_map, qd_full, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages) mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
-        mbar_expect_tx(k_full(s), stage_bytes);
-        tma_rows<D>(k_s + s * stage_bytes, kTileBox, &k_map, k_full(s), hk, i * kTile, b);
-        mbar_expect_tx(v_full(s), stage_bytes);
-        tma_rows<D>(v_s + s * stage_bytes, kTileBox, &v_map, v_full(s), hk, i * kTile, b);
+        mbar_expect_tx(k_full(s), k_stage);
+        tma_rows<D>(k_s + s * k_stage, kTileBox, &k_map, k_full(s), hk, i * kTile, b);
+        mbar_expect_tx(v_full(s), v_stage);
+        tma_rows<DV>(v_s + s * v_stage, kTileBox, &v_map, v_full(s), hk, i * kTile, b);
       }
     }
     return;
@@ -1103,15 +1117,15 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_wait(k_full(s), (i / kStages) & 1);
     mbar_wait(v_full(s), (i / kStages) & 1);
     wg_fence();
-    mma_dots<D>(sc, my_q, kBlockBox, k_s + s * stage_bytes, kTileBox);
-    mma_dots<D>(dp, my_do, kBlockBox, v_s + s * stage_bytes, kTileBox);
+    mma_dots<D>(sc, my_q, kBlockBox, k_s + s * k_stage, kTileBox);
+    mma_dots<DV>(dp, my_do, kBlockBox, v_s + s * v_stage, kTileBox);
     wg_commit();
   };
   auto grad = [&](const uint32_t (&a)[4][4], int i) {
     wg_fence();
     hold(g0);
     hold(g1);
-    mma_rows<D>(g0, g1, a, k_s + (i % kStages) * stage_bytes, kTileBox);
+    mma_rows<D>(g0, g1, a, k_s + (i % kStages) * k_stage, kTileBox);
     wg_commit();
   };
   // sc (scores) -> dS = P (dP - delta) in place
@@ -1167,17 +1181,18 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   store_rows<D>(dq, g0, g1, mul, row0, tq, b, hq, h, lane);
 }
 
-template <int D>
+template <int D, int DV>
 constexpr size_t dkdv_smem() {
-  return 1024 + Dims<D>::kBoxes * (2 * kBlockBox + 2 * kStages * kTileBox) +
+  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) * (kBlockBox + kStages * kTileBox) +
          kStages * 2 * kTile * sizeof(float) + 8 * 8;
 }
 
 // dK and dV.  Grid (Hkv, B, k tiles), the first keys (the most q tiles)
 // first.  Warpgroup wg owns keys k0 + 64 wg ...; the producer loads K and V
 // once and streams, for each head of the group in turn, the Q and dO tiles
-// from the diagonal on with their rows' lse and delta.
-template <int D>
+// from the diagonal on with their rows' lse and delta.  S^T = K Q^T and
+// dK = dS^T Q run over D, dP^T = V dO^T and dV = P^T dO over DV.
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsKV, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap k_map,
@@ -1187,17 +1202,18 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq,
             int tk, int hq, int hkv, float scale, float scale_log2, int causal) {
   using G = Dims<D>;
+  using GV = Dims<DV>;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const uint32_t q_stage = G::kBoxes * kTileBox, do_stage = GV::kBoxes * kTileBox;
   const uint32_t k_s = aligned_base(smem_raw);
   const uint32_t v_s = k_s + G::kBoxes * kBlockBox;
-  const uint32_t q_s = v_s + G::kBoxes * kBlockBox;
-  const uint32_t do_s = q_s + kStages * G::kBoxes * kTileBox;
-  const uint32_t stats = do_s + kStages * G::kBoxes * kTileBox;   // (lse2, delta) per stage
+  const uint32_t q_s = v_s + GV::kBoxes * kBlockBox;
+  const uint32_t do_s = q_s + kStages * q_stage;
+  const uint32_t stats = do_s + kStages * do_stage;   // (lse2, delta) per stage
   const uint32_t bars = stats + kStages * 2 * kTile * sizeof(float);
   const uint32_t kv_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
-  const uint32_t stage_bytes = G::kBoxes * kTileBox;
   // generic pointer to the stats, for plain loads and stores
   float* stats_p = reinterpret_cast<float*>(smem_raw + (stats - smem_addr(smem_raw)));
 
@@ -1225,9 +1241,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     regs_give<kProducerRegs>();
     if (warp > 8) return;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, 2 * G::kBoxes * kBlockBox);
+      mbar_expect_tx(kv_full, (G::kBoxes + GV::kBoxes) * kBlockBox);
       tma_rows<D>(k_s, kBlockBox, &k_map, kv_full, hk, k0, b);
-      tma_rows<D>(v_s, kBlockBox, &v_map, kv_full, hk, k0, b);
+      tma_rows<DV>(v_s, kBlockBox, &v_map, kv_full, hk, k0, b);
     }
     for (int i = 0; i < n_steps; ++i) {
       const int s = i % kStages;
@@ -1242,9 +1258,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
         st[kTile + r] = row < tq ? delta[at] : 0.f;
       }
       if (lane == 0) {
-        mbar_expect_tx(full(s), 2 * stage_bytes);
-        tma_rows<D>(q_s + s * stage_bytes, kTileBox, &q_map, full(s), h, qs, b);
-        tma_rows<D>(do_s + s * stage_bytes, kTileBox, &do_map, full(s), h, qs, b);
+        mbar_expect_tx(full(s), q_stage + do_stage);
+        tma_rows<D>(q_s + s * q_stage, kTileBox, &q_map, full(s), h, qs, b);
+        tma_rows<DV>(do_s + s * do_stage, kTileBox, &do_map, full(s), h, qs, b);
       } else {
         mbar_arrive(full(s));
       }
@@ -1257,11 +1273,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   const int first = k0 + 64 * wg;                       // the warpgroup's first key
   const int key0 = first + 16 * (warp % 4) + lane / 4;  // this thread's keys: key0, key0 + 8
   float dk0[32], dk1[G::kN1 > 0 ? G::kN1 / 2 : 1];
-  float dv0[32], dv1[G::kN1 > 0 ? G::kN1 / 2 : 1];
+  float dv0[32], dv1[GV::kN1 > 0 ? GV::kN1 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk0[i] = dv0[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (G::kN1 > 0 ? G::kN1 / 2 : 1); ++i) dk1[i] = dv1[i] = 0.f;
+  for (int i = 0; i < (G::kN1 > 0 ? G::kN1 / 2 : 1); ++i) dk1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (GV::kN1 > 0 ? GV::kN1 / 2 : 1); ++i) dv1[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   const uint32_t my_k = k_s + 64 * wg * kRowBytes, my_v = v_s + 64 * wg * kRowBytes;
@@ -1278,8 +1296,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
                         (causal && first + 63 > qs + q_off);
       float sc[32], dp[32];
       wg_fence();
-      mma_dots<D>(sc, my_k, kBlockBox, q_s + s * stage_bytes, kTileBox);
-      mma_dots<D>(dp, my_v, kBlockBox, do_s + s * stage_bytes, kTileBox);
+      mma_dots<D>(sc, my_k, kBlockBox, q_s + s * q_stage, kTileBox);
+      mma_dots<DV>(dp, my_v, kBlockBox, do_s + s * do_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(sc);
@@ -1303,8 +1321,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       hold(dv1);
       hold(dk0);
       hold(dk1);
-      mma_rows<D>(dv0, dv1, ap, do_s + s * stage_bytes, kTileBox);
-      mma_rows<D>(dk0, dk1, ads, q_s + s * stage_bytes, kTileBox);
+      mma_rows<DV>(dv0, dv1, ap, do_s + s * do_stage, kTileBox);
+      mma_rows<D>(dk0, dk1, ads, q_s + s * q_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(dv0);
@@ -1317,7 +1335,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(empty(s));
   }
   const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-  store_rows<D>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane);
+  store_rows<DV>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane);
   store_rows<D>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane);
 }
 
@@ -1328,9 +1346,9 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------- //
 
 // Tq > Tk is refused only when causal: the causal offset Tk - Tq must be >= 0
-bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int causal) {
+bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int dv, int causal) {
   return b < 1 || tq < 1 || tk < 1 || (causal && tk < tq) || hkv < 1 || hq % hkv != 0 ||
-         d % 8 != 0 || d < 8 || d > 256;
+         d % 8 != 0 || d < 8 || d > 256 || dv % 8 != 0 || dv < 8 || dv > 256;
 }
 
 // opt in to more than 48 KB of dynamic shared memory where needed
@@ -1344,25 +1362,31 @@ int allow_smem(K kernel, size_t smem) {
   return 0;
 }
 
+// the float32 route's shared memory: a (kTile, d) and a (kTile, dv) row
+// tile, and transposed (d, kPad) and (dv, kPad) tiles where `transposed`
+size_t f32_smem(int d, int dv, bool dv_transposed) {
+  return sizeof(float) * (kTile * d + kTile * dv + d * kPad + (dv_transposed ? dv * kPad : 0));
+}
+
 template <typename T, int NC>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-        int tq, int tk, int hq, int hkv, int d, float scale, int causal,
+        int tq, int tk, int hq, int hkv, int d, int dv, float scale, int causal,
         cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, NC>;
-  const size_t smem = sizeof(float) * (2 * kTile * d + d * kPad);
+  const size_t smem = f32_smem(d, dv, false);
   const dim3 grid((tq + kTile - 1) / kTile, hq, b);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, tq, tk, hq, hkv, d, scale, causal);
+      static_cast<T*>(o), lse, tq, tk, hq, hkv, d, dv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int NC>
 int bwd(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, float* delta, void* dq, void* dk,
-        void* dv, int b, int tq, int tk, int hq, int hkv, int d, float scale,
+        void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v, float scale,
         int causal, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
@@ -1371,29 +1395,29 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   const long long rows = static_cast<long long>(b) * tq * hq;
   flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
                               kThreads, 0, stream>>>(static_cast<const T*>(o), got,
-                                                     delta, b, tq, hq, d);
+                                                     delta, b, tq, hq, d_v);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   auto dq_kernel = flash_bwd_dq_kernel<T, NC>;
-  const size_t dq_smem = sizeof(float) * (2 * kTile * d + 2 * d * kPad);
+  const size_t dq_smem = f32_smem(d, d_v, true);
   const dim3 dq_grid((tq + kTile - 1) / kTile, hq, b);
   err = allow_smem(dq_kernel, dq_smem);
   if (err) return err;
   dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
-      qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq, hkv, d, scale,
-      causal);
+      qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq, hkv, d, d_v,
+      scale, causal);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   auto kv_kernel = flash_bwd_dkdv_kernel<T, NC>;
-  const size_t kv_smem = sizeof(float) * (2 * kTile * d + 2 * d * kPad);
+  const size_t kv_smem = f32_smem(d, d_v, true);
   const dim3 kv_grid((tk + kTile - 1) / kTile, hkv, b);
   err = allow_smem(kv_kernel, kv_smem);
   if (err) return err;
   kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
       qt, kt, vt, got, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk,
-      hq, hkv, d, scale, causal);
+      hq, hkv, d, d_v, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1467,18 +1491,18 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
 
 int blocks_of(int n, int rows) { return (n + rows - 1) / rows; }
 
-template <int D>
+template <int D, int DV>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
              int tq, int tk, int hq, int hkv, float scale, int causal,
              cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
   if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kBlockRows) ||
       !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
-      !tensor_map(&mv, v, b, tk, hkv, D, hopper::kTile)) {
+      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = hopper::fwd_kernel<D>;
-  const size_t smem = hopper::fwd_smem<D>();
+  auto kernel = hopper::fwd_kernel<D, DV>;
+  const size_t smem = hopper::fwd_smem<D, DV>();
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<dim3(hq, b, blocks_of(tq, hopper::kBlockRows)), hopper::kThreadsH, smem, stream>>>(
@@ -1487,7 +1511,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DV>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq, void* dk,
              void* dv, int b, int tq, int tk, int hq, int hkv, float scale, int causal,
@@ -1497,21 +1521,22 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   hopper::delta_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block),
                  hopper::kDeltaWarps * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-      delta, rows, tq, hq, D);
+      delta, rows, tq, hq, DV);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   CUtensorMap mq, mk, mv, mdo;
   if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kBlockRows) ||
-      !tensor_map(&mdo, dout, b, tq, hq, D, hopper::kBlockRows) ||
+      !tensor_map(&mdo, dout, b, tq, hq, DV, hopper::kBlockRows) ||
       !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
-      !tensor_map(&mv, v, b, tk, hkv, D, hopper::kTile)) {
+      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto dq_k = hopper::dq_kernel<D>;
-  err = allow_smem(dq_k, hopper::dq_smem<D>());
+  auto dq_k = hopper::dq_kernel<D, DV>;
+  err = allow_smem(dq_k, hopper::dq_smem<D, DV>());
   if (err) return err;
-  dq_k<<<dim3(hq, b, blocks_of(tq, hopper::kBlockRows)), hopper::kThreadsH, hopper::dq_smem<D>(), stream>>>(
+  dq_k<<<dim3(hq, b, blocks_of(tq, hopper::kBlockRows)), hopper::kThreadsH,
+         hopper::dq_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), tq, tk, hq, hkv,
       scale, scale * hopper::kLog2e, causal);
   err = static_cast<int>(cudaGetLastError());
@@ -1519,56 +1544,68 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
 
   // the dK/dV kernel holds 128 keys and streams 64-row q and dO tiles
   if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kTile) ||
-      !tensor_map(&mdo, dout, b, tq, hq, D, hopper::kTile) ||
+      !tensor_map(&mdo, dout, b, tq, hq, DV, hopper::kTile) ||
       !tensor_map(&mk, k, b, tk, hkv, D, hopper::kBlockRows) ||
-      !tensor_map(&mv, v, b, tk, hkv, D, hopper::kBlockRows)) {
+      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kBlockRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kv_k = hopper::dkdv_kernel<D>;
-  err = allow_smem(kv_k, hopper::dkdv_smem<D>());
+  auto kv_k = hopper::dkdv_kernel<D, DV>;
+  err = allow_smem(kv_k, hopper::dkdv_smem<D, DV>());
   if (err) return err;
-  kv_k<<<dim3(hkv, b, blocks_of(tk, hopper::kBlockRows)), hopper::kThreadsKV, hopper::dkdv_smem<D>(), stream>>>(
+  kv_k<<<dim3(hkv, b, blocks_of(tk, hopper::kBlockRows)), hopper::kThreadsKV,
+         hopper::dkdv_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, scale, scale * hopper::kLog2e, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(D) for the head dims the bfloat16 route instantiates
+// f(D, DV) for the (qk, v) head-dim pairs the bfloat16 route instantiates:
+// the square 64, 80, 96 and 128, and (96, 64), MiniCPM3's MLA heads
 template <typename F>
-int with_head_dim(int d, F&& f) {
-  switch (d) {
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 80: return f(std::integral_constant<int, 80>{});
-    case 96: return f(std::integral_constant<int, 96>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return static_cast<int>(cudaErrorInvalidValue);
+int with_head_dims(int d, int dv, F&& f) {
+  using std::integral_constant;
+  if (d == dv) {
+    switch (d) {
+      case 64: return f(integral_constant<int, 64>{}, integral_constant<int, 64>{});
+      case 80: return f(integral_constant<int, 80>{}, integral_constant<int, 80>{});
+      case 96: return f(integral_constant<int, 96>{}, integral_constant<int, 96>{});
+      case 128: return f(integral_constant<int, 128>{}, integral_constant<int, 128>{});
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  if (d == 96 && dv == 64) {
+    return f(integral_constant<int, 96>{}, integral_constant<int, 64>{});
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core
-// route, head dims 64, 80, 96 and 128); q, k, v, o and the gradients share
-// it, lse and delta are f32.  Tensors are contiguous (B, T, H, D), and the
-// bfloat16 route's are 16-byte aligned.
+// dtype codes: 0 = float32 (CUDA-core route, any d and dv that are multiples
+// of 8 up to 256), 1 = bfloat16 (tensor-core route, the (d, dv) pairs of
+// with_head_dims); q, k, v, o and the gradients share it, lse and delta are
+// f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
+// v, dv (B, Tk, Hkv, dv), o, dO (B, Tq, Hq, dv); the bfloat16 route's are
+// 16-byte aligned.
 extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, void* lse, int b, int tq,
-                               int tk, int hq, int hkv, int d, float scale,
+                               int tk, int hq, int hkv, int d, int dv, float scale,
                                int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, causal) || (dtype != 0 && dtype != 1)) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, dv, causal) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
   if (dtype == 1) {
-    return with_head_dim(d, [&](auto dim) {
-      return fwd_bf16<decltype(dim)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, scale,
-                                            causal, s);
+    return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
+      return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
+          q, k, v, o, l, b, tq, tk, hq, hkv, scale, causal, s);
     });
   }
-  return with_nc(d, [&](auto nc) {
-    return fwd<float, decltype(nc)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, d, scale,
-                                           causal, s);
+  // the forward's accumulators are the output's dv columns
+  return with_nc(dv, [&](auto nc) {
+    return fwd<float, decltype(nc)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv,
+                                           scale, causal, s);
   });
 }
 
@@ -1576,35 +1613,36 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* dq, void* dk,
                                void* dv, int b, int tq, int tk, int hq, int hkv,
-                               int d, float scale, int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, causal) || (dtype != 0 && dtype != 1)) {
+                               int d, int d_v, float scale, int causal, void* stream) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, d_v, causal) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
   if (dtype == 1) {
-    return with_head_dim(d, [&](auto dim) {
-      return bwd_bf16<decltype(dim)::value>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq,
-                                            tk, hq, hkv, scale, causal, s);
+    return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
+      return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
+          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, scale, causal, s);
     });
   }
-  return with_nc(d, [&](auto nc) {
+  // dQ's accumulators are d wide, dK's d and dV's d_v: one count for both
+  return with_nc(d > d_v ? d : d_v, [&](auto nc) {
     return bwd<float, decltype(nc)::value>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq,
-                                           tk, hq, hkv, d, scale, causal, s);
+                                           tk, hq, hkv, d, d_v, scale, causal, s);
   });
 }
 
-// Dynamic shared memory of the bfloat16 route's kernels at head dim d
+// Dynamic shared memory of the bfloat16 route's kernels at head dims (d, dv)
 // (kernel 0 forward, 1 dQ, 2 dK/dV; the delta kernel's is static), for the
-// build report; -1 for a head dim the route does not take.
-extern "C" int repro_flash_bf16_smem(int kernel, int d) {
+// build report; -1 for a pair the route does not take.
+extern "C" int repro_flash_bf16_smem(int kernel, int d, int dv) {
   if (kernel < 0 || kernel > 2) return -1;
   int bytes = -1;
-  with_head_dim(d, [&](auto dim) {
-    constexpr int D = decltype(dim)::value;
-    const size_t sizes[3] = {hopper::fwd_smem<D>(), hopper::dq_smem<D>(),
-                             hopper::dkdv_smem<D>()};
+  with_head_dims(d, dv, [&](auto dim, auto dim_v) {
+    constexpr int D = decltype(dim)::value, DV = decltype(dim_v)::value;
+    const size_t sizes[3] = {hopper::fwd_smem<D, DV>(), hopper::dq_smem<D, DV>(),
+                             hopper::dkdv_smem<D, DV>()};
     bytes = static_cast<int>(sizes[kernel]);
     return 0;
   });

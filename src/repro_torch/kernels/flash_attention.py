@@ -10,8 +10,10 @@ from q, k, v, o, dO and that log-sum-exp.  The reference needs no
 backward kernel because JAX differentiates its jnp version; the port's
 training loss runs through the forward kernel, so it has one.  The
 source has two routes, chosen by dtype: bfloat16 runs on the tensor
-cores (``wgmma`` fed by TMA, head dims :data:`BF16_HEAD_DIMS`), float32
-in exact f32 on the CUDA cores.
+cores (``wgmma`` fed by TMA, the (qk, v) head-dim pairs
+:data:`BF16_PAIRS`), float32 in exact f32 on the CUDA cores.  As in the
+TPU kernel, V may be narrower or wider than Q and K: ``v (B, Tk, Hkv,
+Dv)`` gives an output ``(B, Tq, Hq, Dv)``, natively in every kernel.
 
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
@@ -30,41 +32,54 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# one instantiation each of the bfloat16 (tensor-core) route; float32 takes
-# any multiple of 8 up to 256
+# the bfloat16 (tensor-core) route's instantiations: square head dims, and
+# the (D, Dv) pairs with a V of its own width (MiniCPM3's MLA heads); float32
+# takes any D and Dv that are multiples of 8 up to 256
 BF16_HEAD_DIMS = (64, 80, 96, 128)
+BF16_PAIRS = tuple((d, d) for d in BF16_HEAD_DIMS) + ((96, 64),)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool) -> None:
+           causal: bool, **outputs: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: dtypes and shapes first
-    (so a CPU tensor shows them too), then the device and the layout."""
+    (so a CPU tensor shows them too), then the device and the layout.
+    ``outputs`` (the backward's ``out`` and ``dout``) must be (B, Tq, Hq,
+    Dv) in q's dtype."""
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError("q, k and v must share one dtype")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q (B, Tq, Hq, D) and k, v (B, Tk, Hkv, D), got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"want q (B, Tq, Hq, D), k (B, Tk, Hkv, D) and v (B, "
+                         f"Tk, Hkv, Dv), got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, tq, hq, d = q.shape
     _, tk, hkv, dk = k.shape
+    dv = v.shape[3]
     if k.shape[0] != b or dk != d:
-        raise ValueError(f"k, v {tuple(k.shape)} do not match q {tuple(q.shape)}")
+        raise ValueError(f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if d % 8 or d > 256:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and <= 256")
-    if q.dtype == torch.bfloat16 and d not in BF16_HEAD_DIMS:
-        raise ValueError(f"head dim {d}: the bfloat16 kernels take head dims "
-                         f"{BF16_HEAD_DIMS}")
+    for name, width in (("head dim", d), ("v head dim", dv)):
+        if width % 8 or width > 256:
+            raise ValueError(f"{name} {width} must be a multiple of 8 and <= 256")
+    if q.dtype == torch.bfloat16 and (d, dv) not in BF16_PAIRS:
+        raise ValueError(
+            f"head dims (D, Dv) = ({d}, {dv}): the bfloat16 kernels take head "
+            f"dims {BF16_HEAD_DIMS} with Dv = D, and the pairs "
+            f"{tuple(p for p in BF16_PAIRS if p[0] != p[1])}")
     if tq < 1 or tk < 1:
         raise ValueError(f"Tq={tq} and Tk={tk} must be >= 1")
     if causal and tq > tk:
         raise ValueError(f"Tq={tq} > Tk={tk}: the kernel's causal offset "
                          "Tk - Tq must be >= 0 (so is the reference's)")
-    for t in (q, k, v):
+    for name, t in outputs.items():
+        if tuple(t.shape) != (b, tq, hq, dv) or t.dtype != q.dtype:
+            raise ValueError(f"{name} must be a {q.dtype} tensor of shape "
+                             f"{(b, tq, hq, dv)}")
+    for t in (q, k, v, *outputs.values()):
         if t.device.type != "cuda":
             raise ValueError("the flash-attention kernel takes CUDA tensors; "
                              "kernels.ref holds the plain version")
@@ -93,18 +108,19 @@ def _scale(d: int, scale: Optional[float]) -> float:
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One forward launch: ``(out (B, Tq, Hq, D) in q's dtype, lse (B, Hq,
-    Tq) f32)``."""
+    """One forward launch: ``(out (B, Tq, Hq, Dv) in q's dtype, lse (B,
+    Hq, Tq) f32)``."""
     _check(q, k, v, causal)
     b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    tk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
     err = lib.repro_flash_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, d, _scale(d, scale),
-        int(causal), torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, d, dv,
+        _scale(d, scale), int(causal),
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     return out, lse
@@ -117,15 +133,10 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backward pass (three kernel launches: delta = dO . O, dQ, and
-    dK/dV): ``(dq, dk, dv)`` in the inputs' dtype."""
-    _check(q, k, v, causal)
+    dK/dV): ``(dq, dk, dv)`` in the inputs' dtype, dv of V's width."""
+    _check(q, k, v, causal, out=out, dout=dout)
     b, tq, hq, d = q.shape
-    tk, hkv = k.shape[1], k.shape[2]
-    for name, t in (("out", out), ("dout", dout)):
-        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
-            raise ValueError(f"{name} must be a {q.dtype} tensor of q's shape "
-                             f"{tuple(q.shape)} on {q.device}")
-        _check_layout(t)
+    tk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     if lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, hq, tq)}")
@@ -136,7 +147,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, d,
-        _scale(d, scale), int(causal),
+        dv_, _scale(d, scale), int(causal),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 3     # delta, dQ and dK/dV

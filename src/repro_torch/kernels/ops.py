@@ -60,8 +60,9 @@ def xor_reduce(stacked, use_kernel: Optional[bool] = None):
 
 def flash_attention(q, k, v, causal=True, prefix_len=0, scale=None,
                     use_kernel: Optional[bool] = None):
-    """(B, Tq, Hq, D) attention over (B, Tk, Hkv, D) keys and values;
-    differentiable on both paths (the kernel path through the backward
+    """(B, Tq, Hq, D) queries over (B, Tk, Hkv, D) keys and (B, Tk, Hkv,
+    Dv) values -> (B, Tq, Hq, Dv); Dv may differ from D on both paths.
+    Differentiable on both paths (the kernel path through the backward
     kernel)."""
     # refused before the device check, so the refusal is the same anywhere
     if prefix_len and (use_kernel or (use_kernel is None and q.is_cuda)):

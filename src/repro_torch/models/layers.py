@@ -59,16 +59,25 @@ def _init_leaf(gen: torch.Generator, spec: LeafSpec, dtype: torch.dtype,
         scale = spec.scale if spec.scale is not None else 0.02
     x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
                     device=device)
-    return (x * scale).to(dtype)
+    # in place: a leaf of a large model is drawn with one copy in memory
+    return x.mul_(scale).to(dtype)
 
 
 def materialize(gen: torch.Generator, table: ParamTable,
-                dtype: torch.dtype = torch.float32, device="cuda") -> Any:
+                dtype: torch.dtype = torch.float32, device="cuda",
+                leaf_dtype: Optional[Callable[[str], torch.dtype]] = None
+                ) -> Any:
     """Instantiate a param table into a nested dict of tensors, drawing
-    every normal leaf from ``gen`` in flattened-name order."""
+    every normal leaf from ``gen`` in flattened-name order.  With
+    ``leaf_dtype``, each leaf made in ``dtype`` is cast at once to
+    ``leaf_dtype(its "a/b/c" name)`` (the same values as casting the whole
+    tree afterwards, without holding it in ``dtype``)."""
     flat = _flatten_table(table)
-    leaves = {name: _init_leaf(gen, spec, dtype, device)
-              for name, spec in flat.items()}
+    leaves = {}
+    for name, spec in flat.items():
+        leaf = _init_leaf(gen, spec, dtype, device)
+        leaves[name] = leaf if leaf_dtype is None else leaf.to(leaf_dtype(name))
+        del leaf    # the float32 copy goes before the next leaf is drawn
     return _unflatten_like(table, leaves)
 
 
@@ -220,9 +229,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 # ---------------------------------------------------------------------- #
 
 
-def _mask_value(dtype=None) -> torch.Tensor:
-    return torch.tensor(-0.7 * float(torch.finfo(torch.float32).max),
-                        dtype=torch.float32)
+# the reference's mask value, a float32 scalar
+MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 
 
 def flash_attention(
@@ -257,7 +265,8 @@ def decode_attention(
     logits = torch.einsum("bhgd,bshd->bhgs", qg.to(dt), k_cache.to(dt)).float()
     mask = (torch.arange(s, device=q.device)[None, None, None, :]
             < length[:, None, None, None])
-    logits = torch.where(mask, logits, _mask_value().to(q.device))
+    # a Python scalar: a tensor copied from the host would wait for the card
+    logits = torch.where(mask, logits, MASK_VALUE)
     probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
     dt = torch.promote_types(probs.dtype, v_cache.dtype)
     out = torch.einsum("bhgs,bshd->bhgd", probs.to(dt), v_cache.to(dt))

@@ -1,8 +1,9 @@
 """Family dispatch: ``get_model(cfg)`` returns a :class:`ModelApi`.
 
 Counterpart of ``repro/models/registry.py``.  The port has the
-``dense``, ``rwkv`` and ``hybrid`` families; every other family raises,
-naming the ROADMAP.md slice that ports it.
+``dense`` (MLA included), ``moe``, ``rwkv`` and ``hybrid`` families;
+``encdec`` and ``vlm`` raise, naming the ROADMAP.md slice that ports
+them.
 """
 
 from __future__ import annotations
@@ -33,15 +34,16 @@ class ModelApi:
 
 
 _WAITS = {
-    "moe": "MLA, MoE and the other families",
-    "encdec": "MLA, MoE and the other families",
-    "vlm": "MLA, MoE and the other families",
+    "encdec": "whisper and paligemma",
+    "vlm": "whisper and paligemma",
 }
 
 
 def get_model(cfg: ArchConfig) -> ModelApi:
     if cfg.family == "dense":
         from repro_torch.models import transformer as m
+    elif cfg.family == "moe":
+        from repro_torch.models import moe as m
     elif cfg.family == "rwkv":
         from repro_torch.models import rwkv6 as m
     elif cfg.family == "hybrid":

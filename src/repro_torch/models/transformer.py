@@ -1,4 +1,4 @@
-"""Dense transformer family: starcoder2 / phi3 / gemma-style.
+"""Dense transformer family: starcoder2 / phi3 / minicpm3 (MLA) / gemma-style.
 
 Counterpart of ``repro/models/transformer.py`` with the same param and
 cache tables (layer-stacked ``(L, ...)`` leaves under the same key
@@ -10,8 +10,15 @@ plain versions for CPU tensors.  ``remat=True`` recomputes each layer in
 the backward pass (``torch.utils.checkpoint``, where the reference has
 ``jax.checkpoint``).
 
-Waits for later slices: the MLA branch (minicpm3), ``prefix_embeds``
-(paligemma) and the sequence-parallel forwards, all listed in ROADMAP.md.
+Multi-head Latent Attention (MiniCPM3): training materializes per-head K
+(qk width) and V (``v_head_dim``, narrower) and runs the flash kernel with
+its own V width; decoding caches only the latent ``ckv`` and the shared
+rope key and attends in latent space (the absorbed-matmul form), with
+plain einsums as the reference does, on both the contiguous and the
+paged path.
+
+Waits for later slices: ``prefix_embeds`` (paligemma) and the
+sequence-parallel forwards, listed in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -23,11 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops
-from repro_torch.memory.codecs import SCALE_SUFFIX, int8_quantize
+from repro_torch.memory.codecs import (SCALE_SUFFIX, int8_dequantize,
+                                       int8_quantize)
 from repro_torch.models import layers as L
-
-_MLA_WAITS = ("MLA decode (minicpm3) waits for the 'MLA, MoE and the other "
-              "families' slice of ROADMAP.md")
 
 
 # ---------------------------------------------------------------------- #
@@ -104,13 +109,15 @@ def param_table(cfg: ArchConfig) -> Dict[str, Any]:
     return t
 
 
-def init(seed: int, cfg: ArchConfig, device="cuda"):
+def init(seed: int, cfg: ArchConfig, device="cuda", cast: bool = False):
     """Random parameters drawn from a ``torch.Generator`` seeded with
     ``seed`` on ``device`` (same init kinds and scales as the reference;
-    not the same numbers — its PRNG differs)."""
+    not the same numbers — its PRNG differs).  ``cast=True`` stores each
+    leaf as :func:`cast_params` would leave it, cast as it is drawn (a
+    serving tree, without the float32 tree held whole)."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     params = L.materialize(gen, param_table(cfg), L.torch_dtype(cfg.param_dtype),
-                           device)
+                           device, leaf_dtype=cast_dtype(cfg) if cast else None)
     return _zero_padded_heads(params, cfg)
 
 
@@ -137,6 +144,13 @@ def _zero_padded_heads(params, cfg: ArchConfig):
 # leaves the reference reads in fp32 (norm scales); every other leaf it
 # casts to the compute dtype where it uses it
 _FP32_LEAVES = ("gamma", "beta", "q_norm", "kv_norm")
+
+
+def cast_dtype(cfg: ArchConfig):
+    """The dtype :func:`cast_params` leaves a leaf in, by its "a/b/c"
+    name."""
+    pd, cd = L.torch_dtype(cfg.param_dtype), L.torch_dtype(cfg.compute_dtype)
+    return lambda name: pd if name.rsplit("/", 1)[-1] in _FP32_LEAVES else cd
 
 
 def cast_params(params, cfg: ArchConfig):
@@ -175,12 +189,31 @@ def attention_block(
     prefix_len: int = 0,
     causal: bool = True,
 ) -> torch.Tensor:
-    if cfg.mla is not None:
-        raise NotImplementedError(_MLA_WAITS)
     b, t, _ = x.shape
     cd = L.torch_dtype(cfg.compute_dtype)
     xc = x.to(cd)
     hq = cfg.padded_heads
+    if cfg.mla is not None:
+        m = cfg.mla
+        qk_dim = m.qk_nope_dim + m.qk_rope_dim
+        cq = L.rmsnorm(xc @ p["w_dq"].to(cd), p["q_norm"], cfg.norm_eps)
+        q = (cq @ p["w_uq"].to(cd)).reshape(b, t, hq, qk_dim)
+        q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+        dkv = xc @ p["w_dkv"].to(cd)
+        ckv = L.rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+        k_rope = dkv[..., m.kv_lora_rank:][:, :, None, :]     # (B, T, 1, rope)
+        q_rope = L.apply_rope(q_rope, cos, sin)
+        k_rope = L.apply_rope(k_rope, cos, sin)
+        k_nope = (ckv @ p["w_uk"].to(cd)).reshape(b, t, hq, m.qk_nope_dim)
+        v = (ckv @ p["w_uv"].to(cd)).reshape(b, t, hq, m.v_head_dim)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        k_full = torch.cat(
+            [k_nope, k_rope.expand(b, t, hq, m.qk_rope_dim)], dim=-1)
+        # V keeps its own width: the kernel's output is (B, T, H, v_head_dim)
+        out = L.flash_attention(q_full, k_full, v, causal=causal,
+                                prefix_len=prefix_len, scale=qk_dim ** -0.5)
+        return (out.reshape(b, t, hq * m.v_head_dim)
+                @ p["wo"].to(cd)).to(x.dtype)
     dh = cfg.resolved_head_dim
     hkv = cfg.padded_kv_heads
     q = (xc @ p["wq"].to(cd)).reshape(b, t, hq, dh)
@@ -235,10 +268,14 @@ def forward(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token sequence -> next-token logits.  With ``remat`` each layer's
     activations are recomputed in the backward pass."""
-    if prefix_embeds is not None or mesh is not None:
+    if prefix_embeds is not None:
         raise NotImplementedError(
-            "prefix_embeds (paligemma) and the sequence-parallel forwards "
-            "wait for later slices of ROADMAP.md")
+            "prefix_embeds waits for the 'whisper and paligemma' slice of "
+            "ROADMAP.md (item 1.3)")
+    if mesh is not None:
+        raise NotImplementedError(
+            "the sequence-parallel forwards (_forward_mla_seqpar, "
+            "_forward_gqa_seqpar) wait for ROADMAP.md item 1.4")
     tokens = batch["tokens"]
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens, cd)
@@ -318,6 +355,53 @@ def _qkv(p, xin: torch.Tensor, cfg: ArchConfig, cos, sin):
     return q, knew, vnew
 
 
+def _mla_query(p, xin: torch.Tensor, cfg: ArchConfig, cos, sin):
+    """One token per row: the rotated MLA query split ``(q_nope (B, H,
+    nope), q_rope (B, H, rope))`` and the new latent row ``(ckv (B, r),
+    k_rope (B, rope))``, in the compute dtype."""
+    m = cfg.mla
+    cd = xin.dtype
+    b = xin.shape[0]
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    cq = L.rmsnorm(xin @ p["w_dq"].to(cd), p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"].to(cd)).reshape(b, cfg.padded_heads, qk_dim)
+    q_nope = q[..., :m.qk_nope_dim]
+    q_rope = L.apply_rope(q[..., m.qk_nope_dim:][:, None], cos, sin)[:, 0]
+    dkv = xin @ p["w_dkv"].to(cd)
+    ckv_new = L.rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    krope_new = L.apply_rope(dkv[:, None, None, m.kv_lora_rank:], cos,
+                             sin)[:, 0, 0]
+    return q_nope, q_rope, ckv_new, krope_new
+
+
+def _mla_attend(p, q_nope, q_rope, ckv: torch.Tensor, krope: torch.Tensor,
+                visible: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Absorbed-matmul MLA attention in latent space over the positions of
+    ``ckv (B, S, r)`` and ``krope (B, S, rope)`` that ``visible`` (broadcast
+    to (B, 1, S)) marks:
+
+        scores_h = q_nope_h^T W_uk_h c_kv  +  q_rope_h^T k_rope
+        out_h    = (probs . c_kv) W_uv_h
+
+    The per-head K/V are never materialized.  Returns ``(B, D)`` after
+    ``wo``, in the compute dtype."""
+    m = cfg.mla
+    cd = q_nope.dtype
+    b, hq = q_nope.shape[:2]
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    w_uk = p["w_uk"].to(cd).reshape(m.kv_lora_rank, hq, m.qk_nope_dim)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope, w_uk)       # (B, H, r)
+    s = torch.einsum("bhr,bsr->bhs", q_abs, ckv.to(cd))
+    s = s + torch.einsum("bhp,bsp->bhs", q_rope, krope.to(cd))
+    s = (s * (qk_dim ** -0.5)).float()
+    s = torch.where(visible, s, L.MASK_VALUE)
+    probs = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bhs,bsr->bhr", probs.to(cd), ckv.to(cd))
+    w_uv = p["w_uv"].to(cd).reshape(m.kv_lora_rank, hq, m.v_head_dim)
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(b, hq * m.v_head_dim)
+    return out @ p["wo"].to(cd)
+
+
 def _logits(params, h: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.apply_norm(cfg, h[:, None], params["ln_f"])[:, 0]
@@ -338,26 +422,35 @@ def decode_step(
 
     The new K/V row is written into ``cache`` in place (the reference's
     ``dynamic_update_slice`` returns a new cache); the updated dict is
-    returned as the reference returns its new cache."""
-    if cfg.mla is not None:
-        raise NotImplementedError(_MLA_WAITS)
+    returned as the reference returns its new cache.  MLA writes its
+    latent row (``ckv``, ``k_rope``) and attends in latent space."""
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens, cd)
     b = x.shape[0]
-    s = cache["k"].shape[2]
+    s = next(iter(cache.values())).shape[2]
     wp = min(max(int(pos), 0), s - 1)   # dynamic_update_slice clamps
-    positions = torch.tensor([int(pos)], device=x.device)
+    positions = torch.full((1,), int(pos), device=x.device)   # no host copy
     cos, sin = _rope_tables(cfg, positions)
     lengths = torch.full((b,), int(pos) + 1, dtype=torch.int32, device=x.device)
+    visible = (torch.arange(s, device=x.device) <= int(pos))[None, None, :]
     for li in range(cfg.n_layers):
         lp = L.index_tree(params["layers"], li)
         xin = L.apply_norm(cfg, x[:, None], lp["ln1"])[:, 0]
-        q, knew, vnew = _qkv(lp["attn"], xin, cfg, cos, sin)
-        kc, vc = cache["k"][li], cache["v"][li]
-        kc[:, wp] = knew.to(kc.dtype)
-        vc[:, wp] = vnew.to(vc.dtype)
-        attn = L.decode_attention(q, kc, vc, lengths)
-        attn = attn.reshape(b, -1).to(cd) @ lp["attn"]["wo"].to(cd)
+        if cfg.mla is not None:
+            q_nope, q_rope, ckv_new, krope_new = _mla_query(
+                lp["attn"], xin, cfg, cos, sin)
+            ckv, krope = cache["ckv"][li], cache["k_rope"][li]
+            ckv[:, wp] = ckv_new.to(ckv.dtype)
+            krope[:, wp] = krope_new.to(krope.dtype)
+            attn = _mla_attend(lp["attn"], q_nope, q_rope, ckv, krope,
+                               visible, cfg)
+        else:
+            q, knew, vnew = _qkv(lp["attn"], xin, cfg, cos, sin)
+            kc, vc = cache["k"][li], cache["v"][li]
+            kc[:, wp] = knew.to(kc.dtype)
+            vc[:, wp] = vnew.to(vc.dtype)
+            attn = L.decode_attention(q, kc, vc, lengths)
+            attn = attn.reshape(b, -1).to(cd) @ lp["attn"]["wo"].to(cd)
         x = x + attn.to(x.dtype)
         xff = L.apply_norm(cfg, x[:, None], lp["ln2"])[:, 0]
         x = x + ffn_block(lp["ffn"], xff[:, None], cfg)[:, 0]
@@ -367,6 +460,30 @@ def decode_step(
 # ---------------------------------------------------------------------- #
 # paged decode (pool-resident page tables)
 # ---------------------------------------------------------------------- #
+
+
+def _pool_write(pools, name: str, li: int, row: torch.Tensor,
+                phys: torch.Tensor, off: torch.Tensor, quantized: bool) -> None:
+    """Write one decoded (B, *rest) row into layer ``li`` of ``pools[name]``
+    at ``[phys, off]``, in place (quantized per channel in int8 pools)."""
+    if quantized:
+        qv, sv = int8_quantize(row, axis=-1)
+        pools[name][li][phys, off] = qv
+        pools[name + SCALE_SUFFIX][li][phys, off] = sv[..., 0]
+    else:
+        pools[name][li][phys, off] = row.to(pools[name].dtype)
+
+
+def _pool_gather(pools, name: str, li: int, tables: torch.Tensor,
+                 quantized: bool) -> torch.Tensor:
+    """Layer ``li`` of ``pools[name]`` gathered through each row's table:
+    ``(B, s_pad, *rest)`` (dequantized to float32 in int8 pools)."""
+    buf = pools[name][li]
+    idx = tables.clamp(0, buf.shape[0] - 1).long()
+    out = buf[idx]
+    if quantized:
+        out = int8_dequantize(out, pools[name + SCALE_SUFFIX][li][idx][..., None])
+    return out.reshape((tables.shape[0], -1) + tuple(out.shape[3:]))
 
 
 def paged_decode_step(
@@ -391,14 +508,19 @@ def paged_decode_step(
     Quantized pools (``<leaf>__scale`` companions present) quantize each
     new row per channel on write and attend through the int8 kernel.
 
+    MLA pools hold the latent leaves ``ckv (L, P, page, r)`` and ``k_rope
+    (L, P, page, rope)``: each layer writes its latent row, gathers the
+    row's pages through its table (dequantized in int8 pools) and attends
+    in latent space as :func:`decode_step` does, with plain einsums as the
+    reference; the calls and their shapes are the same for every token of
+    every T.
+
     Returns ``(out (B, T) int32 argmax tokens, pools)``.
     """
-    if cfg.mla is not None:
-        raise NotImplementedError(_MLA_WAITS)
     cd = L.torch_dtype(cfg.compute_dtype)
     b, t_total = tokens.shape
     quantized = any(k.endswith(SCALE_SUFFIX) for k in pools)
-    page_tokens = pools["k"].shape[2]
+    page_tokens = next(iter(pools.values())).shape[2]
     s_pad = tables.shape[1] * page_tokens
     layers = [L.index_tree(params["layers"], li) for li in range(cfg.n_layers)]
     kname, vname = "k" + SCALE_SUFFIX, "v" + SCALE_SUFFIX
@@ -412,24 +534,34 @@ def paged_decode_step(
         lengths = (p_t + 1).to(torch.int32)
         x = L.embed_tokens(params["embed"], tokens[:, t], cd)
         cos, sin = _rope_tables(cfg, p_t)
+        if cfg.mla is not None:
+            visible = (torch.arange(s_pad, device=tokens.device)[None, None, :]
+                       <= p_t[:, None, None])
         for li, lp in enumerate(layers):
             xin = L.apply_norm(cfg, x[:, None], lp["ln1"])[:, 0]
-            q, knew, vnew = _qkv(lp["attn"], xin, cfg, cos[:, None],
-                                 sin[:, None])
-            if quantized:
-                for name, row in (("k", knew), ("v", vnew)):
-                    qv, sv = int8_quantize(row, axis=-1)
-                    pools[name][li][phys, off] = qv
-                    pools[name + SCALE_SUFFIX][li][phys, off] = sv[..., 0]
-                attn = ops.paged_attention_quant(
-                    q, pools["k"][li], pools[kname][li], pools["v"][li],
-                    pools[vname][li], tables, lengths)
+            if cfg.mla is not None:
+                q_nope, q_rope, ckv_new, krope_new = _mla_query(
+                    lp["attn"], xin, cfg, cos[:, None], sin[:, None])
+                _pool_write(pools, "ckv", li, ckv_new, phys, off, quantized)
+                _pool_write(pools, "k_rope", li, krope_new, phys, off, quantized)
+                attn = _mla_attend(
+                    lp["attn"], q_nope, q_rope,
+                    _pool_gather(pools, "ckv", li, tables, quantized),
+                    _pool_gather(pools, "k_rope", li, tables, quantized),
+                    visible, cfg)
             else:
-                pools["k"][li][phys, off] = knew.to(pools["k"].dtype)
-                pools["v"][li][phys, off] = vnew.to(pools["v"].dtype)
-                attn = ops.paged_attention(q, pools["k"][li], pools["v"][li],
-                                           tables, lengths)
-            attn = attn.reshape(b, -1).to(cd) @ lp["attn"]["wo"].to(cd)
+                q, knew, vnew = _qkv(lp["attn"], xin, cfg, cos[:, None],
+                                     sin[:, None])
+                _pool_write(pools, "k", li, knew, phys, off, quantized)
+                _pool_write(pools, "v", li, vnew, phys, off, quantized)
+                if quantized:
+                    attn = ops.paged_attention_quant(
+                        q, pools["k"][li], pools[kname][li], pools["v"][li],
+                        pools[vname][li], tables, lengths)
+                else:
+                    attn = ops.paged_attention(q, pools["k"][li],
+                                               pools["v"][li], tables, lengths)
+                attn = attn.reshape(b, -1).to(cd) @ lp["attn"]["wo"].to(cd)
             x = x + attn.to(x.dtype)
             xff = L.apply_norm(cfg, x[:, None], lp["ln2"])[:, 0]
             x = x + ffn_block(lp["ffn"], xff[:, None], cfg)[:, 0]

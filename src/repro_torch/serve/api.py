@@ -68,7 +68,13 @@ def _build_model(cfg: ServeConfig) -> Tuple[Any, Any, Any]:
     if not cfg.full_size:
         arch = arch.reduced()
     model = get_model(arch)
-    params = model.init(cfg.seed, arch, device=cfg.device)
+    if model.cast_params is not None:
+        # the tree the decode path reads, each leaf cast as it is drawn:
+        # a float32 tree beside its cast would not fit a 16-billion-
+        # parameter model on one card
+        params = model.init(cfg.seed, arch, device=cfg.device, cast=True)
+    else:
+        params = model.init(cfg.seed, arch, device=cfg.device)
     return arch, model, params
 
 

@@ -135,7 +135,7 @@ def make_train_step(
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         metrics = {"loss": loss}
         if "router_aux" in aux:
-            metrics["router_aux"] = aux["router_aux"]
+            metrics["router_aux"] = aux["router_aux"].detach()
         return new_state, metrics
 
     return train_step

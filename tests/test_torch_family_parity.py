@@ -1,6 +1,6 @@
 """Shared checks of a port model family against the JAX reference, used by
-``test_torch_rwkv6.py`` and ``test_torch_mamba2.py`` (this module holds no
-tests of its own).
+``test_torch_rwkv6.py``, ``test_torch_mamba2.py``, ``test_torch_mla.py``
+and ``test_torch_moe.py`` (this module holds no tests of its own).
 
 Weights and the initial train state are made by the reference and carried
 across (``repro_torch.convert``); batches come from the data pipeline
@@ -74,7 +74,7 @@ def make_pair(arch):
 # zamba2's stays inside one SSD chunk (64), because the reference's chunked
 # SSD gradient is NaN where a chunk's decays overflow (its forward is
 # finite: ``check_forward`` takes a longer ``seq`` there)
-SEQ = {"rwkv": 40, "hybrid": 24}
+SEQ = {"rwkv": 40, "hybrid": 24, "dense": 32, "moe": 32}
 
 
 def batches(cfg, n, batch=4, seq=None):

@@ -25,7 +25,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = list(port_modules())
     for mod in ("kernels.paged_attention", "kernels.rwkv6_scan",
                 "kernels.mamba2_ssd", "models.rwkv6", "models.mamba2",
-                "serve.kvpage", "serve.prefix", "serve.engine"):
+                "models.moe", "serve.kvpage", "serve.prefix",
+                "serve.engine"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -54,16 +55,16 @@ def test_no_jax_or_reference_import_lines():
 
 
 def test_registry_has_the_recurrent_families_and_names_the_rest():
-    """``rwkv`` and ``hybrid`` resolve to their modules; the families
-    still to port raise, naming their ROADMAP.md item."""
+    """``rwkv``, ``hybrid`` and ``moe`` resolve to their modules; the
+    families still to port raise, naming their ROADMAP.md slice."""
     code = (
         "import json\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models.registry import get_model\n"
         "fams = {}\n"
-        "for arch in ('rwkv6-3b', 'zamba2-2.7b'):\n"
+        "for arch in ('rwkv6-3b', 'zamba2-2.7b', 'qwen2-moe-a2.7b'):\n"
         "    fams[arch] = get_model(get_config(arch)).forward.__module__\n"
-        "for arch in ('qwen2-moe-a2.7b', 'whisper-tiny', 'paligemma-3b'):\n"
+        "for arch in ('whisper-tiny', 'paligemma-3b'):\n"
         "    try:\n"
         "        get_model(get_config(arch))\n"
         "    except NotImplementedError as e:\n"
@@ -75,6 +76,7 @@ def test_registry_has_the_recurrent_families_and_names_the_rest():
     fams = json.loads(out.stdout.strip().splitlines()[-1])
     assert fams["rwkv6-3b"] == "repro_torch.models.rwkv6"
     assert fams["zamba2-2.7b"] == "repro_torch.models.mamba2"
-    for arch in ("qwen2-moe-a2.7b", "whisper-tiny", "paligemma-3b"):
+    assert fams["qwen2-moe-a2.7b"] == "repro_torch.models.moe"
+    for arch in ("whisper-tiny", "paligemma-3b"):
         assert "ROADMAP.md" in fams[arch] and \
-            "MLA, MoE and the other families" in fams[arch], arch
+            "whisper and paligemma" in fams[arch], arch

@@ -357,18 +357,30 @@ FLASH_CASES = [
     # non-causal with more query rows than keys (cross-attention)
     pytest.param((1, 24, 16, 2, 2, 8, False), id="cross-tq-over-tk"),
 ]
+# V with its own width Dv (MLA: minicpm3's qk 96, v 64):
+# b, tq, tk, hq, hkv, d, dv, causal
+DV_CASES = [
+    pytest.param((2, 32, 32, 4, 2, 16, 8, True), id="dv-under-d-gqa"),
+    pytest.param((1, 24, 40, 4, 1, 8, 16, True), id="dv-over-d-offset"),
+    pytest.param((1, 16, 16, 2, 2, 24, 16, False), id="dv-under-d-full"),
+    pytest.param((1, 24, 16, 2, 2, 8, 24, False), id="dv-over-d-cross"),
+    pytest.param((2, 33, 33, 3, 3, 24, 16, True), id="dv-under-d-ragged"),
+]
 
 
 def flash_inputs(case, seed):
-    b, tq, tk, hq, hkv, d, _ = case
+    """q, k, v, dO; ``case`` is (b, tq, tk, hq, hkv, d, causal) or, with
+    V of its own width, (b, tq, tk, hq, hkv, d, dv, causal)."""
+    b, tq, tk, hq, hkv, d = case[:6]
+    dv = case[6] if len(case) == 8 else d
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, tq, hq, d)).astype(np.float32),
             rng.standard_normal((b, tk, hkv, d)).astype(np.float32),
-            rng.standard_normal((b, tk, hkv, d)).astype(np.float32),
-            rng.standard_normal((b, tq, hq, d)).astype(np.float32))
+            rng.standard_normal((b, tk, hkv, dv)).astype(np.float32),
+            rng.standard_normal((b, tq, hq, dv)).astype(np.float32))
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + DV_CASES)
 def test_flash_plain_matches_pallas_and_jnp(case):
     from repro.kernels.flash_attention import flash_attention_pallas
     from repro.models import layers as jlayers
@@ -396,8 +408,23 @@ def test_flash_plain_bf16_matches_pallas():
     np.testing.assert_allclose(as_np(got), as_np(pallas), atol=3e-2, rtol=3e-2)
 
 
+@pytest.mark.parametrize("case", DV_CASES[:2])
+def test_flash_plain_bf16_dv_matches_pallas(case):
+    """bfloat16 with V of its own width: the output is (B, Tq, Hq, Dv)
+    and within the bf16 tolerance of the Pallas kernel's."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    q, k, v, _ = flash_inputs(case, seed=17)
+    got = ops.flash_attention(tb(q), tb(k), tb(v), causal=case[-1])
+    assert got.dtype == torch.bfloat16 and got.shape[-1] == v.shape[-1]
+    pallas = flash_attention_pallas(*(jnp.asarray(x, jnp.bfloat16)
+                                      for x in (q, k, v)), causal=case[-1],
+                                    block_q=8, block_k=8, interpret=True)
+    np.testing.assert_allclose(as_np(got), as_np(pallas), atol=3e-2, rtol=3e-2)
+
+
 @pytest.mark.parametrize("case", [FLASH_CASES[1], FLASH_CASES[2],
-                                  FLASH_CASES[4]])
+                                  FLASH_CASES[4]] + DV_CASES)
 def test_flash_plain_backward_matches_jax_grad(case):
     """dQ, dK, dV of the plain version (the backward kernel's plain
     version) against ``jax.grad`` of the reference's jnp flash attention;
@@ -500,6 +527,48 @@ def test_flash_bf16_route_takes_its_head_dims_on_cuda_only(d):
         tfa.flash_attention_fwd(q, k, v)
 
 
+@pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 96, 64),
+                                        (torch.float32, 96, 64),
+                                        (torch.float32, 40, 136)])
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_flash_dv_call_reaches_the_cuda_only_refusal(which, dtype, d, dv):
+    """A V narrower or wider than Q and K is taken natively (bf16: the
+    instantiated (96, 64) pair; f32: any multiple of 8 up to 256): the
+    call gets past every shape check to the device check, with dO and O
+    of V's width."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x).to(dtype) for x in flash_inputs(
+        (1, 16, 16, 4, 2, d, dv, True), seed=18))
+    with pytest.raises(ValueError, match="CUDA"):
+        if which == "fwd":
+            tfa.flash_attention_fwd(q, k, v)
+        else:
+            lse = torch.zeros((1, 4, 16), dtype=torch.float32)
+            tfa.flash_attention_bwd(q, k, v, dout, lse, dout)
+
+
+def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
+    """bf16 pairs without an instantiation are refused by name, before the
+    device check; V must share K's batch, length and heads; dO and O must
+    be V's width."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x).to(torch.bfloat16) for x in flash_inputs(
+        (1, 16, 16, 2, 2, 96, 32, True), seed=19))
+    with pytest.raises(ValueError, match=r"\(96, 32\).*\(\(96, 64\),\)"):
+        tfa.flash_attention_fwd(q, k, v)
+    q, k, v, dout = (t(x) for x in flash_inputs(
+        (1, 16, 16, 2, 2, 96, 64, True), seed=19))
+    with pytest.raises(ValueError, match="Dv"):
+        tfa.flash_attention_fwd(q, k, v[:, :8])
+    with pytest.raises(ValueError, match="v head dim 12"):
+        tfa.flash_attention_fwd(q, k, v[..., :12])
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32)
+    with pytest.raises(ValueError, match=r"shape \(1, 16, 2, 64\)"):
+        tfa.flash_attention_bwd(q, k, v, q, lse, dout)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_and_xor_kernels_match_plain_on_card():
     if not torch.cuda.is_available():
@@ -530,3 +599,29 @@ def test_cuda_flash_and_xor_kernels_match_plain_on_card():
     x = torch.randint(-2**31, 2**31 - 1, (4, 1001, 128), dtype=torch.int32,
                       device=dev)
     assert torch.equal(ops.xor_reduce(x), ops.xor_reduce(x, use_kernel=False))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_dv_kernels_match_plain_on_card(dtype):
+    """The kernels with V of its own width (minicpm3's (96, 64) heads, GQA,
+    ragged and Tq != Tk non-causal) against the plain version, at
+    chip_smoke.py's tolerances."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    dev = torch.device("cuda")
+    for case in ((2, 200, 200, 40, 40, 96, 64, True),
+                 (2, 100, 77, 8, 2, 96, 64, False)):
+        q, k, v, dout = (t(x).to(dev, dtype)
+                         for x in flash_inputs(case, seed=20))
+        grads = []
+        for use_kernel in (None, False):
+            qs, ks, vs = (x.clone().requires_grad_() for x in (q, k, v))
+            out = ops.flash_attention(qs, ks, vs, causal=case[-1],
+                                      use_kernel=use_kernel)
+            grads.append((out,) + torch.autograd.grad(out, (qs, ks, vs), dout))
+        assert grads[0][0].shape == (*q.shape[:3], 64)
+        tols = ([dict(atol=3e-2, rtol=3e-2)] * 4 if dtype == torch.bfloat16
+                else [F32_TOL] + [dict(atol=2e-5, rtol=1e-5)] * 3)
+        for g, w, tol in zip(grads[0], grads[1], tols):
+            torch.testing.assert_close(g, w, **tol)

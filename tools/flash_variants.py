@@ -42,7 +42,7 @@ VARIANTS = {
                                 "    mbar_wait(v_full(s), ph);\n"
                                 "    if (live && scale_log2 > 1e30f) {")],
     # the forward without P V
-    "fwd scores only": [("      mma_rows<D>(o0, o1, a, v_s + s * stage_bytes, "
+    "fwd scores only": [("      mma_rows<DV>(o0, o1, a, v_s + s * v_stage, "
                          "kTileBox);\n", "")],
     # CUDA's exp2f in place of ex2.approx
     "exp2f": [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
