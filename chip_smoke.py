@@ -5,11 +5,12 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
 drives its serving path (paged, resilient and contiguous) with
-full-width, full-depth phi3-mini-3.8b, minicpm3-4b (MLA, paged) and
-deepseek-moe-16b (MoE, contiguous), and
-its training-and-recovery path with full-width phi3-mini-3.8b cut to 2
-layers, rwkv6-3b cut to 2, zamba2-2.7b cut to 6, minicpm3-4b cut to 2 and
-deepseek-moe-16b cut to 2 (random weights from a seed).  Phases, each of
+full-width, full-depth phi3-mini-3.8b, minicpm3-4b (MLA, paged),
+deepseek-moe-16b (MoE, contiguous), whisper-tiny and paligemma-3b
+(contiguous), and its training-and-recovery path with full-width
+phi3-mini-3.8b cut to 2 layers, rwkv6-3b cut to 2, zamba2-2.7b cut to 6,
+minicpm3-4b cut to 2, deepseek-moe-16b cut to 2, paligemma-3b cut to 2 and
+whisper-tiny at full size (random weights from a seed).  Phases, each of
 which raises on a failed check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
@@ -43,15 +44,16 @@ which raises on a failed check:
 6. the flash-attention kernels (forward, and backward through autograd)
    against their plain version: phi3 heads (32/32, D 96) at the training
    shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128), zamba2's
-   shared block (32/32, D 80) and a D 64 shape, a ragged T 200, Tq < Tk
-   and non-causal Tq > Tk, float32 (CUDA-core route) and bfloat16
-   (tensor-core route:
+   shared block (32/32, D 80) and a D 64 shape, a ragged T 200, Tq < Tk,
+   non-causal Tq > Tk and the prefix-LM mask (D 96: T 512 with prefix
+   128, T 200 with prefix 77, Tq 100 < Tk 300 with prefix 150), float32
+   (CUDA-core route) and bfloat16 (tensor-core route:
    wgmma fed by TMA), with the float32 gradients also held against a
    float64 computation; the bf16 kernels' registers, spills and shared
    memory (ptxas) and their HGMMA / UTMALDG counts (cuobjdump -sass), none
    without HGMMA; two bf16 forward and backward launches at phi3's
-   training shape bit-identical; the kernel path refuses prefix_len != 0
-   and causal Tq > Tk; then forward and backward times at three training
+   training shape bit-identical; the kernel path refuses causal Tq > Tk;
+   then forward and backward times at three training
    shapes (B 4, T 512, bf16: phi3 heads, zamba2's shared block at D 80 and
    deepseek-moe-16b's 16 heads of 128, recorded under ``at_head_dim_80``
    and ``at_head_dim_128``) beside their bounds, the plain
@@ -147,7 +149,31 @@ which raises on a failed check:
    the same through a serving save, a node kill and a restore into a
    fresh ``Serve.local``: the same tokens; tok/s, and the batch-1 decode
    step (every expert read, the reference's design) by CUDA events
-   against the time to read its weights.
+   against the time to read its weights;
+16. whisper-tiny and paligemma-3b: (a) the flash kernels against their
+   plain version (f32 and bf16, forward and backward, the f32 gradients
+   also against float64) at paligemma's training shape (B 4, T 512 = 256
+   patches + 256 text, 8 query heads over 1 of 256, causal, prefix 256
+   and 0), a ragged T 200 with prefix 77, whisper's encoder (B 4, 1500
+   frames, 6 heads of 64, non-causal) and cross-attention (448 text rows
+   over 1500 frames); two bf16 launches bit-identical at the three timed
+   shapes; times beside the bound, the plain version and the fastest SDPA
+   form that takes the call (the prefix as a boolean mask, kv heads as
+   given and repeated); (b) paligemma-3b at full depth (18 layers):
+   one bf16 prefill, 18 flash launches, no plain or library attention
+   call; (c) training at published width cut to 2 layers, twice, under
+   deterministic algorithms: the same final state bytes, 2 forward and 3
+   backward flash launches per layer per step; (d) whisper-tiny at full
+   size (4 + 4 layers, B 4 x T 448 over 1500 frames): a full-depth
+   prefill (12 flash launches), the f32 kernel path against the plain
+   path, and ``Trainer`` with PARTNER copies and node 3 killed at step 6
+   of 8: one recovery, 20 forward calls (4 encoder + 2 x 8 decoder) and
+   12 backward passes per step, the uninterrupted run's state bytes; (e)
+   ``Serve.local(paged=False)`` at full size for both (2 slots, 4
+   requests, 8 new tokens), uninterrupted and through a save, a node kill
+   and a restore: the same tokens, decode attention only through
+   ``layers.decode_attention``; ``paged=True`` refused with the
+   reference's message; tok/s and ms per slot-step.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -199,6 +225,8 @@ from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import xor_parity as xp  # noqa: E402
 from repro_torch.memory.stack import TierStack  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, tree_leaves  # noqa: E402
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
@@ -275,7 +303,8 @@ BELOW_CLIP_SHAPE = (1, 77, 2, 64)
 # phases 11-12: the recurrent families at published width; training cuts
 # the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
 FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6, "minicpm3-4b": 2,
-                      "deepseek-moe-16b": 2}, batch=4, seq=512,
+                      "deepseek-moe-16b": 2, "paligemma-3b": 2,
+                      "whisper-tiny": 4}, batch=4, seq=512,
               steps=8, ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3,
               warmup=4)
 # kernel path vs plain path of a whole float32 forward: 1.6e-5 measured on
@@ -962,21 +991,33 @@ def flash_inputs(b, tq, tk, hq, hkv, d, dtype, seed=SEED, dv=None):
             mk(b, tq, hq, dv))
 
 
-def flash_grads(q, k, v, dout, use_kernel, causal=True):
+def flash_grads(q, k, v, dout, use_kernel, causal=True, prefix_len=0):
     """(out, dq, dk, dv) through ops.flash_attention and autograd."""
     q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
-    out = ops.flash_attention(q, k, v, causal=causal, use_kernel=use_kernel)
+    out = ops.flash_attention(q, k, v, causal=causal, prefix_len=prefix_len,
+                              use_kernel=use_kernel)
     return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
 
 
-def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward, dv=None) -> tuple:
+def visible_pairs(tq, tk, causal=True, prefix_len=0) -> int:
+    """The (query, key) pairs one head attends: every pair without
+    ``causal``; with it, each row's keys up to its diagonal or below the
+    prefix, whichever reaches further."""
+    if not causal:
+        return tq * tk
+    return sum(max(min(tk, i + 1 + tk - tq), min(prefix_len, tk))
+               for i in range(tq))
+
+
+def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward, dv=None,
+                   causal=True, prefix_len=0) -> tuple:
     """Least time for one call: q, k, v (and o, dO for the backward) read
     once, o or dq, dk, dv written once, plus the f32 log-sum-exp; against
-    2 flops per multiply-add over the causal (query, key) pairs this run
+    2 flops per multiply-add over the visible (query, key) pairs this run
     has (forward: Q K^T over d and P V over dv; backward: Q K^T, dS K and
     dS^T Q over d, dO V^T and P^T dO over dv) at the inputs' peak rate."""
     dv = d if dv is None else dv
-    pairs = sum(min(tk, i + 1 + tk - tq) for i in range(tq))
+    pairs = visible_pairs(tq, tk, causal, prefix_len)
     q_bytes, k_bytes = b * tq * hq * d * elem, b * tk * hkv * d * elem
     o_bytes, v_bytes = b * tq * hq * dv * elem, b * tk * hkv * dv * elem
     lse = b * hq * tq * 4
@@ -1077,8 +1118,16 @@ def phase6() -> dict:
         # non-causal Tq > Tk (whisper's cross-attention: more decoder rows
         # than encoder frames)
         "non-causal Tq=64 > Tk=32": (2, 64, 32, 8, 8, 64),
+        # the prefix-LM mask (paligemma's): tiles below, across and past
+        # the prefix, a ragged one, and Tq < Tk
+        "prefix-LM T=512, prefix 128": (2, 512, 512, 32, 32, 96),
+        "prefix-LM T=200, prefix 77": (2, 200, 200, 32, 32, 96),
+        "prefix-LM Tq=100 < Tk=300, prefix 150": (2, 100, 300, 32, 32, 96),
     }
     non_causal = {"non-causal Tq=64 > Tk=32"}
+    prefixes = {"prefix-LM T=512, prefix 128": 128,
+                "prefix-LM T=200, prefix 77": 77,
+                "prefix-LM Tq=100 < Tk=300, prefix 150": 150}
     say("  bf16 route (wgmma + TMA) build report:")
     sass = flash_sass()
     errs = {"flash_attention_fwd": 0.0, "flash_attention_bwd": 0.0}
@@ -1088,9 +1137,10 @@ def phase6() -> dict:
             bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
             tag = f"{label} {str(dtype)[6:]}"
             causal = label not in non_causal
+            prefix_len = prefixes.get(label, 0)
             q, k, v, dout = flash_inputs(*shape, dtype)
-            got = flash_grads(q, k, v, dout, None, causal)
-            want = flash_grads(q, k, v, dout, False, causal)
+            got = flash_grads(q, k, v, dout, None, causal, prefix_len)
+            want = flash_grads(q, k, v, dout, False, causal, prefix_len)
             errs["flash_attention_fwd"] = max(
                 errs["flash_attention_fwd"],
                 check_close(f"flash fwd {tag}", got[0], want[0], **tol))
@@ -1100,7 +1150,7 @@ def phase6() -> dict:
                     check_close(f"flash bwd {name} {tag}", g, w, **bwd_tol))
             if dtype == f32:
                 exact = flash_grads(q.double(), k.double(), v.double(),
-                                    dout.double(), False, causal)
+                                    dout.double(), False, causal, prefix_len)
                 dist = lambda xs: max((x.double() - e).abs().max().item()
                                       for x, e in zip(xs, exact[1:]))
                 kern_d, plain_d = dist(got[1:]), dist(want[1:])
@@ -1112,16 +1162,12 @@ def phase6() -> dict:
                 del exact
     torch.cuda.synchronize()
     q, k, v, _ = flash_inputs(1, 64, 32, 4, 4, 96, bf16)
-    for what, call in (("prefix_len=4", lambda: ops.flash_attention(
-                            q[:, :32], k, v, prefix_len=4)),
-                       ("causal Tq=64 > Tk=32",
-                        lambda: ops.flash_attention(q, k, v))):
-        try:
-            call()
-        except ValueError as e:
-            say(f"  kernel path refuses {what}: {e}")
-        else:
-            raise AssertionError(f"the flash kernel path accepted {what}")
+    try:
+        ops.flash_attention(q, k, v)
+    except ValueError as e:
+        say(f"  kernel path refuses causal Tq=64 > Tk=32: {e}")
+    else:
+        raise AssertionError("the flash kernel path accepted causal Tq > Tk")
 
     # the bf16 route repeats bit for bit at phi3's training shape
     q, k, v, dout = flash_inputs(*shapes[next(iter(shapes))], bf16)
@@ -1841,7 +1887,48 @@ def plain_kernels():
 
 
 PLAIN_SCANS = [(ops, "wkv6_chunked"), (ops, "mamba2_chunked"),
-               (ref, "flash_attention")]
+               (ref, "flash_attention"),
+               (torch.nn.functional, "scaled_dot_product_attention")]
+
+
+class ModalPipeline(TokenPipeline):
+    """The token pipeline, plus for an ``encdec`` / ``vlm`` config the stub
+    frontend's embeddings (whisper's ``enc_frames``, paligemma's
+    ``patches``): standard normal float32 from a Philox stream keyed by
+    (seed + 1, step), so each batch stays a pure function of its step, as
+    the trainer's recovery needs.  For other families it is the token
+    pipeline itself."""
+
+    def __init__(self, cfg, global_batch, seq_len, seed=SEED):
+        super().__init__(cfg.vocab_size, global_batch=global_batch,
+                         seq_len=seq_len, seed=seed)
+        self.modal = {"encdec": ("enc_frames", cfg.enc_seq),
+                      "vlm": ("patches", cfg.n_prefix)}.get(cfg.family)
+        self.d_model = cfg.d_model
+
+    def batch_at(self, step):
+        batch = super().batch_at(step)
+        if self.modal is not None:
+            name, rows = self.modal
+            rng = np.random.Generator(np.random.Philox(
+                key=self.seed + 1, counter=np.uint64(step + 1)))
+            batch[name] = rng.standard_normal(
+                (self.global_batch, rows, self.d_model), dtype=np.float32)
+        return batch
+
+
+def text_len(cfg, seq: int) -> int:
+    """Text tokens of a sequence of ``seq`` positions: paligemma's patches
+    take the first ``n_prefix`` of them."""
+    return seq - cfg.n_prefix if cfg.family == "vlm" else seq
+
+
+def flash_calls_per_pass(cfg) -> int:
+    """Flash attention calls in one forward: one per layer; whisper's
+    encoder layers one each, its decoder layers two (self and cross)."""
+    if cfg.family == "encdec":
+        return cfg.n_enc_layers + 2 * cfg.n_layers
+    return cfg.n_layers
 
 
 def family_launches():
@@ -1859,37 +1946,47 @@ def reset_family_launches() -> None:
         fn.launches = 0
 
 
-def prefill_full_depth(arch: str, kernels: tuple) -> dict:
+def prefill_full_depth(arch: str, kernels: tuple, seq=None) -> dict:
     """The published config at full depth: one ``make_prefill_step`` on B
-    x T tokens, timed, with the kernels' launches counted."""
+    x T positions, timed, with the kernels' launches counted.  The stub
+    frontends' inputs come from ``registry.make_inputs`` (paligemma's
+    patches take the first ``n_prefix`` of the T positions)."""
     cfg = get_config(arch)
     model = get_model(cfg)
+    seq = FAMILY["seq"] if seq is None else seq
     torch.cuda.reset_peak_memory_stats()
     params = model.init(SEED, cfg, device=DEVICE)
     n_params = sum(p.numel() for p in tree_leaves(params))
     prefill = make_prefill_step(cfg, model)
-    rng = np.random.default_rng(SEED)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (FAMILY["batch"], FAMILY["seq"]), dtype=np.int32)
-        ).to(DEVICE)
-    nxt = prefill(params, {"tokens": tokens})      # warm-up
+    if cfg.family in ("encdec", "vlm"):
+        batch = registry.make_inputs(
+            cfg, ShapeSpec("chip_smoke", seq, FAMILY["batch"], "prefill"),
+            torch.Generator(device=DEVICE).manual_seed(SEED), DEVICE)
+    else:
+        rng = np.random.default_rng(SEED)
+        batch = {"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (FAMILY["batch"], seq), dtype=np.int32)
+            ).to(DEVICE)}
+    nxt = prefill(params, batch)      # warm-up
     torch.cuda.synchronize()
     reset_family_launches()
     with counting_calls(PLAIN_SCANS) as plain:
         t0 = time.perf_counter()
-        nxt = prefill(params, {"tokens": tokens})
+        nxt = prefill(params, batch)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
     launches = family_launches()
     peak = torch.cuda.max_memory_allocated()
     ok = (tuple(nxt.shape) == (FAMILY["batch"],)
           and bool(((nxt >= 0) & (nxt < cfg.vocab_size)).all()))
-    say(f"  full depth: {cfg.n_layers} layers, {n_params} parameters, B "
-        f"{FAMILY['batch']} x T {FAMILY['seq']} bf16 prefill {ms:.1f} ms, "
+    shapes = {k: tuple(v.shape) for k, v in batch.items()}
+    say(f"  full depth: {cfg.n_layers} layers, {n_params} parameters, "
+        f"inputs {shapes} bf16 prefill {ms:.1f} ms, "
         f"peak {peak / 2**30:.3f} GiB; launches "
         f"{ {k: launches[k] for k in kernels} }; plain calls {plain}; "
         f"next tokens {nxt.tolist()}")
-    want = {kernels[0]: cfg.n_layers}
+    want = {kernels[0]: flash_calls_per_pass(cfg)
+            if kernels[0] == "flash_attention_fwd" else cfg.n_layers}
     if cfg.attn_every:   # the shared block, once per group
         want["flash_attention_fwd"] = cfg.n_layers // cfg.attn_every
     for name, n in want.items():
@@ -1902,22 +1999,25 @@ def prefill_full_depth(arch: str, kernels: tuple) -> dict:
     del params
     release()
     return {"arch": arch, "layers": cfg.n_layers, "parameters": n_params,
-            "ms": ms, "peak_bytes": peak}
+            "ms": ms, "peak_bytes": peak, "inputs": shapes,
+            "flash_launches": launches["flash_attention_fwd"]}
 
 
 def check_kernel_path_f32(cfg, model) -> float:
     """At float32 compute, the forward's logits through the kernels and
-    through their plain versions agree (B 1, ragged T 200)."""
+    through their plain versions agree (B 1, ragged T 200 text tokens,
+    after paligemma's patches, beside whisper's frames)."""
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     params = model.init(SEED + 1, cfg32, device=DEVICE)
     rng = np.random.default_rng(SEED + 1)
-    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, 200),
-                                           dtype=np.int32)).to(DEVICE)
+    batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in ModalPipeline(
+        cfg, 1, 200, seed=SEED + 1).batch_at(0).items() if k != "labels"}
+    batch["tokens"] = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (1, 200), dtype=np.int32)).to(DEVICE)
     with torch.no_grad():
-        got, _ = model.forward(params, {"tokens": tokens}, cfg32, remat=False)
+        got, _ = model.forward(params, batch, cfg32, remat=False)
         with plain_kernels():
-            want, _ = model.forward(params, {"tokens": tokens}, cfg32,
-                                    remat=False)
+            want, _ = model.forward(params, batch, cfg32, remat=False)
     err = check_close(f"{cfg.name} float32 logits, kernel path vs plain path",
                       got, want, **FAMILY_F32_TOL)
     del params, got, want
@@ -1925,13 +2025,13 @@ def check_kernel_path_f32(cfg, model) -> float:
     return err
 
 
-def clean_sha(cfg, model) -> tuple:
+def clean_sha(cfg, model, seq=None) -> tuple:
     """The uninterrupted run, no checkpoints: the trainer's steps in order
     (same init, same batches) and the SHA-256 of its final state's bytes,
     as a checkpoint's manifest computes it."""
     state = init_train_state(SEED, cfg, model, device=DEVICE)
-    pipe = TokenPipeline(cfg.vocab_size, global_batch=FAMILY["batch"],
-                         seq_len=FAMILY["seq"], seed=SEED)
+    pipe = ModalPipeline(cfg, FAMILY["batch"],
+                         text_len(cfg, FAMILY["seq"] if seq is None else seq))
     step = make_train_step(cfg, model, AdamWConfig(
         lr=FAMILY["lr"], warmup_steps=FAMILY["warmup"]))
     losses, walls, auxes = [], [], []
@@ -1950,14 +2050,16 @@ def clean_sha(cfg, model) -> tuple:
     return manifest, losses, walls, auxes
 
 
-def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
+def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
     """Full-depth prefill, then training at published width with the
     depth cut, one node killed, recovered, and the final state's SHA-256
-    against the uninterrupted run's."""
+    against the uninterrupted run's.  ``seq``: positions per sequence
+    (default ``FAMILY["seq"]``)."""
     layers = FAMILY["layers"][arch]
+    seq = FAMILY["seq"] if seq is None else seq
     say(f"== phase {phase}: {arch} through the {kernels[0].rsplit('_', 1)[0]} "
         "kernels: full-depth prefill, then training with a node kill")
-    prefill = prefill_full_depth(arch, kernels)
+    prefill = prefill_full_depth(arch, kernels, seq)
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     model = get_model(cfg)
     f32_err = check_kernel_path_f32(cfg, model)
@@ -1968,11 +2070,11 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
         say(f"  training: published width, depth cut {get_config(arch).n_layers}"
             f" -> {layers} layers, {n_params} parameters ({3 * 4 * n_params} "
             f"bytes of params + m + v); B {FAMILY['batch']} x T "
-            f"{FAMILY['seq']}, {FAMILY['steps']} steps, PARTNER copies "
+            f"{seq}, {FAMILY['steps']} steps, PARTNER copies "
             f"without a global flush, IntervalPolicy({FAMILY['ckpt_every']}), "
             f"node {FAMILY['fail_rank']} killed at step {FAMILY['fail_step']}; "
             f"free disk {shutil.disk_usage(tmp).free} bytes")
-        clean, clean_losses, clean_walls, _ = clean_sha(cfg, model)
+        clean, clean_losses, clean_walls, _ = clean_sha(cfg, model, seq)
         walls = sorted(clean_walls[1:])
         say(f"  uninterrupted (no checkpoints): loss {clean_losses[0]:.4f} -> "
             f"{clean_losses[-1]:.4f}; step median {1e3 * walls[len(walls) // 2]:.1f}"
@@ -1984,8 +2086,7 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
         scr = SCRManager(cluster, TierStack.for_cluster(cluster),
                          strategy=Strategy.PARTNER, procs_per_node=2,
                          flush_every=0)
-        pipeline = TokenPipeline(cfg.vocab_size, global_batch=FAMILY["batch"],
-                                 seq_len=FAMILY["seq"], seed=SEED)
+        pipeline = ModalPipeline(cfg, FAMILY["batch"], text_len(cfg, seq))
         torch.cuda.reset_peak_memory_stats()
         reset_family_launches()
         with counting_calls(PLAIN_SCANS) as plain, \
@@ -2015,6 +2116,12 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
         # attention in every layer: 2 forward launches (remat) and one
         # backward pass of 3 launches per layer per step
         want[kernels[1]] = 3 * layers * steps
+    if cfg.family == "encdec":
+        # whisper: the encoder's layers (not remat'd) one forward each, the
+        # decoder's two calls (self, cross) twice; a backward pass per call
+        calls = flash_calls_per_pass(cfg)
+        want = {kernels[0]: (calls + 2 * cfg.n_layers) * steps,
+                kernels[1]: 3 * calls * steps}
     if groups:
         want["flash_attention_fwd"] = groups * steps
         want["flash_attention_bwd"] = 3 * groups * steps
@@ -2041,7 +2148,7 @@ def phase_family(phase: int, arch: str, kernels: tuple) -> dict:
         f"{manifest['sha256'][:16]}.. over {manifest['total_bytes']} bytes")
     main_path = {"arch": arch, "layers": layers,
                  "layers_published": get_config(arch).n_layers,
-                 "batch": FAMILY["batch"], "seq": FAMILY["seq"],
+                 "batch": FAMILY["batch"], "seq": seq,
                  "steps_run": steps}
     release()
     return {"launches": {k: launches[k] for k in want}, "main_path": main_path,
@@ -2547,16 +2654,20 @@ MOE_SERVE = dict(arch=MOE_ARCH, full_size=True, paged=False, prefix=True,
 MOE_REQUESTS = dict(n=4, system=16, own=(0, 16), max_new=8)
 
 
-def moe_train_twice(cfg, model) -> dict:
-    """(c): two uninterrupted training runs under deterministic algorithms,
+def train_twice(cfg, model, tag: str) -> dict:
+    """Two uninterrupted training runs under deterministic algorithms,
     each with the flash kernels' launches counted from zero and the plain
-    attention's calls counted; their final states must be the same bytes."""
+    and library attention's calls counted; their final states must be the
+    same bytes."""
     n_params = sum(p.numel() for p in tree_leaves(model.param_shapes(cfg)))
-    say(f"  (c) training: published width, depth cut "
-        f"{get_config(cfg.name).n_layers} -> {cfg.n_layers} layers (1 dense, "
-        f"{cfg.n_layers - cfg.moe.n_dense_layers} MoE), {n_params} parameters "
-        f"({3 * 4 * n_params} bytes of params + m + v); B {FAMILY['batch']} x T "
-        f"{FAMILY['seq']}, {FAMILY['steps']} steps, twice, deterministic "
+    kinds = (f" (1 dense, {cfg.n_layers - cfg.moe.n_dense_layers} MoE)"
+             if cfg.moe is not None else "")
+    inputs = {k: v.shape for k, v in ModalPipeline(
+        cfg, FAMILY["batch"], text_len(cfg, FAMILY["seq"])).batch_at(0).items()}
+    say(f"  {tag} training: published width, depth cut "
+        f"{get_config(cfg.name).n_layers} -> {cfg.n_layers} layers{kinds}, "
+        f"{n_params} parameters ({3 * 4 * n_params} bytes of params + m + v); "
+        f"inputs {inputs}, {FAMILY['steps']} steps, twice, deterministic "
         f"algorithms")
     torch.use_deterministic_algorithms(True)
     runs = []
@@ -2564,7 +2675,7 @@ def moe_train_twice(cfg, model) -> dict:
         for i in range(2):
             torch.cuda.reset_peak_memory_stats()
             reset_family_launches()
-            with counting_calls([(ref, "flash_attention")]) as plain:
+            with counting_calls(PLAIN_SCANS[2:]) as plain:
                 manifest, losses, walls, auxes = clean_sha(cfg, model)
             launches = family_launches()
             runs.append((manifest, losses, walls, auxes, launches, dict(plain),
@@ -2658,7 +2769,7 @@ def phase15() -> dict:
                               n_layers=FAMILY["layers"][MOE_ARCH])
     model = get_model(cfg)
     out["f32_logits_err"] = check_kernel_path_f32(cfg, model)
-    out["train"] = moe_train_twice(cfg, model)
+    out["train"] = train_twice(cfg, model, "(c)")
 
     # (d) contiguous serving at full size, uninterrupted, then through a
     # serving save and a restore into a fresh Serve.local
@@ -2711,6 +2822,286 @@ def phase15() -> dict:
     out["serve"] = serve
     out["seconds"] = time.perf_counter() - t_phase
     say(f"  phase 15 record: {json.dumps(serve)}; took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 16: whisper-tiny and paligemma-3b; the flash kernels at D 256 and
+# with the prefix-LM mask
+# ---------------------------------------------------------------------- #
+
+PALI_ARCH, WHISPER_ARCH = "paligemma-3b", "whisper-tiny"
+WHISPER_TEXT = 448        # whisper's decoder context (its max target positions)
+# b, tq, tk, hq, hkv, d, causal, prefix_len; the timed ones are named in
+# PHASE16_TIMED
+PHASE16_SHAPES = {
+    "paligemma-3b B=4 T=512 (256 patches + 256 text; Hq=8 over 1, D=256), "
+    "prefix 256": (4, 512, 512, 8, 1, 256, True, 256),
+    "paligemma-3b B=4 T=512, no prefix": (4, 512, 512, 8, 1, 256, True, 0),
+    "paligemma-3b T=200, prefix 77": (2, 200, 200, 8, 1, 256, True, 77),
+    "whisper-tiny encoder B=4 T=1500 (H=6, D=64), non-causal": (
+        4, 1500, 1500, 6, 6, 64, False, 0),
+    f"whisper-tiny cross-attention Tq={WHISPER_TEXT} over Tk=1500, non-causal": (
+        4, WHISPER_TEXT, 1500, 6, 6, 64, False, 0),
+}
+PHASE16_TIMED = {   # record key -> shape label
+    "paligemma": next(iter(PHASE16_SHAPES)),
+    "whisper_encoder": list(PHASE16_SHAPES)[3],
+    "whisper_cross": list(PHASE16_SHAPES)[4],
+}
+PHASE16_SERVE = dict(full_size=True, paged=False, prefix=True, slots=2,
+                     max_len=48, page_tokens=16, quantum=2, device=DEVICE)
+PHASE16_REQUESTS = dict(n=4, system=16, own=(0, 16), max_new=8)
+# the reference's refusal of a paged scheduler for a snapshot family
+PAGED_REFUSAL = ("model family {!r} has no paged_decode_step (snapshot-state "
+                 "families cannot decode through page tables)")
+
+
+def prefix_mask(tq, tk, prefix_len, device):
+    """(Tq, Tk) booleans, True where a key is visible: causal from Tk - Tq
+    on, and every key below the prefix."""
+    q_pos = torch.arange(tq, device=device)[:, None] + (tk - tq)
+    k_pos = torch.arange(tk, device=device)[None, :]
+    return (k_pos <= q_pos) | (k_pos < prefix_len)
+
+
+def sdpa_best_ms(q, k, v, dout, causal, prefix_len) -> dict:
+    """SDPA on the same inputs, each backend pinned in turn, kv heads given
+    as they are (``enable_gqa``) and repeated over their groups; a causal
+    call with a prefix passes its visibility as a boolean mask.  The
+    fastest forms that take the call, forward and backward, by CUDA
+    events, with every form's times and refusals printed."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    F = torch.nn.functional
+    g = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).detach().requires_grad_()
+    dt = dout.transpose(1, 2)
+    kw = {}
+    if causal and prefix_len:
+        kw["attn_mask"] = prefix_mask(q.shape[1], k.shape[1], prefix_len,
+                                      q.device)
+    elif causal:
+        kw["is_causal"] = True
+    forms = {"": dict(enable_gqa=g > 1)}
+    if g > 1:
+        forms["+repeat"] = {}
+    best = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        for form, extra in forms.items():
+            name = f"sdpa/{backend.name.lower().replace('_attention', '')}{form}"
+            rep = 1 if form == "" else g
+            kt, vt = (x.transpose(1, 2).repeat_interleave(rep, dim=1).detach()
+                      .requires_grad_() for x in (k, v))
+            call = lambda: F.scaled_dot_product_attention(qt, kt, vt, **kw,
+                                                          **extra)
+            try:
+                with sdpa_kernel(backend):
+                    out = call()
+                    fwd = time_ms(call, iters=20, warmup=3)
+                    bwd = time_ms(lambda: torch.autograd.grad(
+                        out, (qt, kt, vt), dt, retain_graph=True),
+                        iters=10, warmup=2)
+            except RuntimeError as e:
+                say(f"    {name} refuses: {str(e).splitlines()[0][:90]}")
+                continue
+            say(f"    {name}: forward {fwd:.5f} ms, backward {bwd:.5f} ms")
+            for kind, ms in (("fwd", fwd), ("bwd", bwd)):
+                if kind not in best or ms < best[kind][0]:
+                    best[kind] = (ms, name)
+            del out
+    if len(best) != 2:
+        raise AssertionError("no SDPA backend took the call")
+    return best
+
+
+def phase16_kernels() -> dict:
+    """(a): the flash kernels at paligemma's and whisper's shapes against
+    their plain version (the f32 gradients also against float64), two bf16
+    launches bit-identical, and the times at the three training shapes
+    beside the bound, the plain version and the fastest SDPA form."""
+    say("  (a) the flash kernels at D 256 with the prefix-LM mask and at "
+        "whisper's shapes, against their plain version")
+    f32, bf16 = torch.float32, torch.bfloat16
+    errs = {}
+    for label, (b, tq, tk, hq, hkv, d, causal, pl) in PHASE16_SHAPES.items():
+        key = "256" if d == 256 else "whisper"
+        for dtype in (f32, bf16):
+            tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+            tag = f"{label} {str(dtype)[6:]}"
+            q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, dtype)
+            got = flash_grads(q, k, v, dout, None, causal, pl)
+            want = flash_grads(q, k, v, dout, False, causal, pl)
+            errs[f"fwd_{key}"] = max(errs.get(f"fwd_{key}", 0.0), check_close(
+                f"flash fwd {tag}", got[0], want[0], **tol))
+            for name, g_, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+                errs[f"bwd_{key}"] = max(errs.get(f"bwd_{key}", 0.0), check_close(
+                    f"flash bwd {name} {tag}", g_, w, **bwd_tol))
+            if dtype == f32:
+                exact = flash_grads(q.double(), k.double(), v.double(),
+                                    dout.double(), False, causal, pl)
+                dist = lambda xs: max((x.double() - e).abs().max().item()
+                                      for x, e in zip(xs, exact[1:]))
+                kern_d, plain_d = dist(got[1:]), dist(want[1:])
+                say(f"    distance to float64, dQ/dK/dV: kernel {kern_d:.3e}, "
+                    f"plain {plain_d:.3e} (limit max(plain, {FLASH_F64_ATOL}))")
+                if kern_d > max(plain_d, FLASH_F64_ATOL):
+                    raise AssertionError(f"flash bwd {tag}: the kernel lies "
+                                         f"{kern_d:.3e} from float64")
+                del exact
+            del q, k, v, dout, got, want
+            release()
+
+    rec = {}
+    for key, label in PHASE16_TIMED.items():
+        b, tq, tk, hq, hkv, d, causal, pl = PHASE16_SHAPES[label]
+        q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, bf16)
+        fwd = [fa.flash_attention_fwd(q, k, v, causal, None, pl) for _ in range(2)]
+        bwd = [fa.flash_attention_bwd(q, k, v, *fwd[0], dout, causal, None, pl)
+               for _ in range(2)]
+        same = {n: torch.equal(x, y) for n, x, y in zip(
+            ("out", "lse", "dq", "dk", "dv"), fwd[0] + bwd[0], fwd[1] + bwd[1])}
+        say(f"  bf16 repeats bit-identical at {label}: {same}")
+        if not all(same.values()):
+            raise AssertionError(f"the bf16 flash kernels did not repeat at "
+                                 f"{label}: {same}")
+        out, lse = fwd[0]
+        qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+        plain_out = ref.flash_attention(qr, kr, vr, causal=causal, prefix_len=pl)
+        say(f"  SDPA at {label}:")
+        lib = sdpa_best_ms(q, k, v, dout, causal, pl)
+        timed = {
+            "fwd": (lambda: fa.flash_attention_fwd(q, k, v, causal, None, pl),
+                    lambda: ref.flash_attention(q, k, v, causal=causal,
+                                                prefix_len=pl)),
+            "bwd": (lambda: fa.flash_attention_bwd(q, k, v, out, lse, dout,
+                                                   causal, None, pl),
+                    lambda: torch.autograd.grad(plain_out, (qr, kr, vr), dout,
+                                                retain_graph=True)),
+        }
+        for kind, (kern, plain) in timed.items():
+            ms = time_ms(kern, iters=50)
+            plain_ms = time_ms(plain, iters=10, warmup=2)
+            bound, bound_by = flash_bound_ms(b, tq, tk, hq, hkv, d, 2,
+                                             backward=kind == "bwd",
+                                             causal=causal, prefix_len=pl)
+            rec.setdefault(key, {})[kind] = {
+                "ms": ms, "kernel_ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound, "bound_by": bound_by,
+                "library_ms": lib[kind][0], "library": lib[kind][1],
+                "max_abs_err": errs[f"{kind}_{'256' if d == 256 else 'whisper'}"],
+                "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv,
+                          "D": d, "dtype": "bfloat16", "causal": causal,
+                          "prefix_len": pl}}
+            say(f"  flash_attention_{kind} at {label}: kernel {ms:.5f} ms, "
+                f"plain {plain_ms:.5f} ms, {lib[kind][1]} {lib[kind][0]:.5f} "
+                f"ms, bound {bound:.5f} ms ({bound_by})")
+        del q, k, v, dout, fwd, bwd, out, lse, qr, kr, vr, plain_out, timed
+        release()
+    return rec
+
+
+def phase16_serve(arch: str) -> dict:
+    """(e): ``Serve.local(paged=False)`` at full size, uninterrupted and
+    through a save, a node kill and a restore: the same tokens, decode
+    attention through ``layers.decode_attention`` (no flash, no paged
+    kernel, no plain flash); the paged scheduler refused as the reference
+    refuses it."""
+    cfg = ServeConfig(arch=arch, **PHASE16_SERVE)
+    vocab = get_config(arch).vocab_size
+    rng = np.random.default_rng(SEED + 16)
+    system = rng.integers(0, vocab, size=PHASE16_REQUESTS["system"]).tolist()
+    lo, hi = PHASE16_REQUESTS["own"]
+    prompts = [system + rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
+                                     ).tolist()
+               for _ in range(PHASE16_REQUESTS["n"])]
+    say(f"  (e) {arch}: Serve.local(paged=False), prefix cache: {len(prompts)} "
+        f"requests of {[len(x) for x in prompts]} tokens, max_new="
+        f"{PHASE16_REQUESTS['max_new']}; slots {cfg.slots}, quantum "
+        f"{cfg.quantum}")
+    runs = {}
+    for kill in (False, True):
+        reset_family_launches()
+        with counting_calls(PLAIN_SCANS[2:]) as plain:
+            runs[kill] = resilient_run(
+                f"(e) {arch}" + (", save and restore" if kill else ""), cfg,
+                prompts, PHASE16_REQUESTS["max_new"], kill=kill)
+        runs[kill]["flash"] = family_launches()
+        runs[kill]["plain_flash"] = dict(plain)
+    clean, killed = runs[False], runs[True]
+    per_token = 2 if get_config(arch).family == "encdec" else 1
+    failures = []
+    if killed["outs"] != clean["outs"]:
+        failures.append("the tokens after the restore differ")
+    for tag, r in (("uninterrupted", clean), ("restored", killed)):
+        t = r["total"]
+        want = per_token * r["n_layers"] * (cfg.slots * t["steps"]
+                                            + t["prefill_tokens"])
+        if r["launches"] or any(r["flash"].values()) \
+                or any(r["plain_flash"].values()) or r["plain_calls"] != want:
+            failures.append(
+                f"{tag}: paged launches {r['launches']}, flash {r['flash']}, "
+                f"plain flash / SDPA {r['plain_flash']}, decode attention "
+                f"calls {r['plain_calls']} (want {want})")
+        if t["parked"] <= 0 or t["prefix_hits"] <= 0:
+            failures.append(f"{tag}: parked {t['parked']}, prefix hits "
+                            f"{t['prefix_hits']}")
+    if killed["ckpt"] is None or not killed["ckpt"]["restored_equal"]:
+        failures.append(f"checkpoint {killed['ckpt']}")
+    try:
+        Serve.local(dataclasses.replace(cfg, paged=True, full_size=False))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        refusal = None
+    if refusal != PAGED_REFUSAL.format(get_config(arch).family):
+        failures.append(f"paged=True: {refusal!r}")
+    if failures:
+        raise AssertionError(f"phase 16 (e) {arch}: " + "; ".join(failures))
+    t = clean["total"]
+    units = cfg.slots * t["steps"] + t["prefill_tokens"]
+    n_tok = sum(len(o) for o in clean["outs"])
+    rec = {"tokens": n_tok, "wall_s": clean["wall"],
+           "tok_per_s": n_tok / clean["wall"], "slot_steps": units,
+           "wall_ms_per_slot_step": 1e3 * clean["wall"] / units,
+           "decode_attention_calls": clean["plain_calls"],
+           "parked": t["parked"], "resumed": t["resumed"],
+           "prefix_hits": t["prefix_hits"], "peak_gib": clean["peak_gib"],
+           "checkpoint": killed["ckpt"], "paged_refusal": refusal,
+           "digest": hashlib.sha256(json.dumps(clean["outs"]).encode()
+                                    ).hexdigest()[:16]}
+    say(f"  (e) {arch}: the same tokens after the save and restore; {n_tok} "
+        f"tokens in {clean['wall']:.3f} s = {rec['tok_per_s']:.2f} tok/s, "
+        f"{rec['wall_ms_per_slot_step']:.2f} ms per slot-step on the host clock "
+        f"({units} = {cfg.slots} slots x {t['steps']} steps + "
+        f"{t['prefill_tokens']} prefill tokens); paged=True refused: "
+        f"{refusal}")
+    return rec
+
+
+def phase16() -> dict:
+    say("== phase 16: whisper-tiny and paligemma-3b: the flash kernels at D "
+        "256 and with the prefix-LM mask, paligemma's full-depth prefill and "
+        "training, whisper's training with a node kill, contiguous serving")
+    t_phase = time.perf_counter()
+    out = {"kernels": phase16_kernels()}
+    say(f"  (b) {PALI_ARCH} at full depth")
+    out["prefill"] = prefill_full_depth(PALI_ARCH, ("flash_attention_fwd",))
+    cfg = dataclasses.replace(get_config(PALI_ARCH),
+                              n_layers=FAMILY["layers"][PALI_ARCH])
+    model = get_model(cfg)
+    out["f32_logits_err"] = check_kernel_path_f32(cfg, model)
+    out["train"] = train_twice(cfg, model, "(c)")
+    say(f"  (d) {WHISPER_ARCH} at full size")
+    out["whisper"] = phase_family(16, WHISPER_ARCH, ("flash_attention_fwd",
+                                                     "flash_attention_bwd"),
+                                  seq=WHISPER_TEXT)
+    out["serve"] = {arch: phase16_serve(arch)
+                    for arch in (WHISPER_ARCH, PALI_ARCH)}
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 16 record: {json.dumps(out['serve'])}; took "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -2833,6 +3224,32 @@ def main() -> int:
         kernels[name][f"launches_{MOE_ARCH}"] = moe["train"]["launches"][name]
         kernels[name][f"main_path_{MOE_ARCH}"] = moe["train"]["main_path"]
     kernels["flash_attention_fwd"][f"prefill_full_depth_{MOE_ARCH}"] = moe["prefill"]
+
+    p16 = phase16()
+    for kind in ("fwd", "bwd"):
+        name = f"flash_attention_{kind}"
+        kernels[f"{name}_256x256"] = {
+            "name": f"{name}_256x256", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:123",
+            "design": "wgmma+tma, D 256: both consumer warpgroups on the same "
+                      "64 rows, each with half the output columns; prefix-LM "
+                      "mask (paligemma-3b: 8 query heads over 1, prefix 256)",
+            "launches": p16["train"]["launches"][name],
+            "main_path": p16["train"]["main_path"],
+            "prefill_full_depth_launches": (p16["prefill"]["flash_launches"]
+                                            if kind == "fwd" else 0),
+            "sass": {k: v for k, v in sass.items() if k.endswith("<256,256>")
+                     and k.startswith("fwd") == (kind == "fwd")},
+            **p16["kernels"]["paligemma"][kind]}
+        for key in ("whisper_encoder", "whisper_cross"):
+            kernels[name][f"at_{key}"] = p16["kernels"][key][kind]
+        kernels[name][f"launches_{WHISPER_ARCH}"] = (
+            p16["whisper"]["launches"][name])
+        kernels[name][f"main_path_{WHISPER_ARCH}"] = p16["whisper"]["main_path"]
+    kernels["flash_attention_fwd"][f"prefill_full_depth_{PALI_ARCH}"] = p16["prefill"]
+    kernels["flash_attention_fwd"][f"prefill_full_depth_{WHISPER_ARCH}"] = (
+        p16["whisper"]["prefill"])
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

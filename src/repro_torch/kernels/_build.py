@@ -35,8 +35,8 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_paged_split_tokens": [],
     },
     "flash_attention": {
-        "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _P],
-        "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 7 + [_F, _I, _P],
+        "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+        "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
         "repro_flash_bf16_smem": [_I, _I, _I],
     },
     "xor_parity": {

@@ -10,9 +10,15 @@
 // reference's p.astype(v.dtype)), V rows past Tk zeroed, GQA reading kv head
 // h / g, tiles wholly after the diagonal skipped, and acc / max(l, 1e-30)
 // written in q's dtype.  It also writes lse = m + log(l) per query row for
-// the backward pass.  The reference has no backward kernel (JAX
-// differentiates the jnp version); this one is the standard flash backward
-// in three launches:
+// the backward pass.  Both routes also take the reference model's prefix-LM
+// mask (layers.flash_attention's prefix_len, which the TPU kernel's dispatch
+// drops): with causal, a key below prefix_len is visible to every row, so
+// tile skipping keeps every tile that starts below it (forward and dQ read
+// keys up to max(diagonal, prefix_len); dK/dV blocks that hold a prefix key
+// read every q tile) and a tile that straddles prefix_len is masked per
+// element.  Without causal it changes nothing, as in the reference.  The
+// reference has no backward kernel (JAX differentiates the jnp version);
+// this one is the standard flash backward in three launches:
 //   delta_i = dO_i . O_i                              (delta)
 //   p_ij = exp(s_ij - lse_i), ds_ij = p_ij (dO_i . v_j - delta_i)
 //   dQ_i = scale sum_j ds_ij k_j                      (dQ: one block per q
@@ -72,8 +78,16 @@
 //   product over or into V's columns (P V, dO V^T, P^T dO, the delta rows,
 //   V's and dO's tiles and tensor maps, O's and dV's stores) runs at DV while
 //   Q K^T, dS K and dS^T Q keep D.  (D, DV) = (64, 64), (80, 80), (96, 96),
-//   (128, 128) and (96, 64) (MiniCPM3's MLA heads) are instantiated; others
-//   are refused.
+//   (128, 128), (256, 256) (PaliGemma's heads) and (96, 64) (MiniCPM3's MLA
+//   heads) are instantiated; others are refused;
+//   - at D 256 a row's accumulators do not fit one thread's registers (dK
+//     and dV together would be 256 f32 values a thread), so the two consumer
+//     warpgroups of a block take the same 64 rows (keys in dK/dV), each
+//     computes the scores over all four 64-column boxes, and each keeps and
+//     stores half of the output columns (Split<D, DV>): every warpgroup's
+//     footprint is D 128's, for scores computed twice.  A block's row tile
+//     is then 64 rows, and the backward ring 2 stages (3 do not fit the
+//     shared memory).  No sum crosses warpgroups, so the bits stay fixed.
 //
 // * float32: exact f32 products on the CUDA cores (tensor cores would round
 //   to TF32); any D and Dv that are multiples of 8 up to 256.  A block of 4 warps owns 32 query rows (8 per warp); each
@@ -87,6 +101,7 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -171,7 +186,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
                  T* __restrict__ o,         // (B, Tq, Hq, Dv)
                  float* __restrict__ lse,   // (B, Hq, Tq)
                  int tq, int tk, int hq, int hkv, int d, int dv, float scale,
-                 int causal) {
+                 int causal, int prefix_len) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -196,8 +211,10 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  // tiles wholly after the last query row's diagonal are skipped
-  const int k_end = causal ? min(tk, min(q0 + kTile, tq) + q_offset) : tk;
+  // tiles wholly after the last query row's diagonal (and past the
+  // prefix) are skipped
+  const int k_end =
+      causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_offset)) : tk;
   const float* my_q = q_s + warp * kRows * d;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
     __syncthreads();   // the previous tile's readers are done
@@ -215,7 +232,7 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int q_pos = q0 + warp * kRows + i + q_offset;
-      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos);
+      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos || k_pos < prefix_len);
       const float si = valid ? s[i] * scale : kNegInf;
       const float m_new = fmaxf(m[i], warp_max(si));
       const float e = expf(si - m_new);
@@ -302,7 +319,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int tq, int tk, int hq, int hkv, int d,
-                    int dv, float scale, int causal) {
+                    int dv, float scale, int causal, int prefix_len) {
   const int q0 = blockIdx.x * kTile;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -330,7 +347,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
   }
 
-  const int k_end = causal ? min(tk, min(q0 + kTile, tq) + q_offset) : tk;
+  const int k_end =
+      causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_offset)) : tk;
   const float* my_q = q_s + warp * kRows * d;
   const float* my_do = do_s + warp * kRows * dv;
   for (int k0 = 0; k0 < k_end; k0 += kTile) {
@@ -350,7 +368,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < kRows; ++i) {
       const int q_pos = q0 + warp * kRows + i + q_offset;
-      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos);
+      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos || k_pos < prefix_len);
       const float p = valid ? expf(s[i] * scale - row_lse[i]) : 0.f;
       ds[i] = p * (dp[i] - row_delta[i]);
     }
@@ -404,7 +422,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const T* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
-                      int hq, int hkv, int d, int d_v, float scale, int causal) {
+                      int hq, int hkv, int d, int d_v, float scale, int causal,
+                      int prefix_len) {
   const int k0 = blockIdx.x * kTile;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -429,8 +448,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < NC; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
   }
 
-  // the first query tile that sees any of these keys
-  const int q_begin = causal ? max(0, k0 - q_offset) / kTile * kTile : 0;
+  // the first query tile that sees any of these keys (every tile sees a
+  // prefix key)
+  const int q_begin =
+      causal && k0 >= prefix_len ? max(0, k0 - q_offset) / kTile * kTile : 0;
   const float* my_k = k_s + warp * kRows * d;
   const float* my_v = v_s + warp * kRows * d_v;
   for (int hh = 0; hh < g; ++hh) {
@@ -457,7 +478,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const int k_pos = k0 + warp * kRows + i;
-        const bool valid = q_row < tq && k_pos < tk && (!causal || k_pos <= q_pos);
+        const bool valid = q_row < tq && k_pos < tk &&
+                           (!causal || k_pos <= q_pos || k_pos < prefix_len);
         p[i] = valid ? expf(s[i] * scale - my_lse) : 0.f;
         ds[i] = p[i] * (dp[i] - my_delta);
       }
@@ -526,23 +548,41 @@ constexpr int kThreadsH = 2 * kWG + 32;      // two consumer warpgroups + produc
 // 2 x 232 registers each of the SM's 65,536)
 constexpr int kThreadsKV = 3 * kWG;
 constexpr int kProducerRegs = 40, kConsumerRegs = 232;
-constexpr int kBlockRows = 2 * 64;           // rows a block owns (64 per warpgroup)
 constexpr int kTile = 64;                    // rows of a streamed tile
 constexpr int kStages = 3;     // backward ring: a tile in each of two products, one loading
 constexpr int kFwdStages = 2;  // forward ring: its products take one tile at a time
 constexpr int kBox = 64;                     // bf16 columns of one 128-byte swizzled row
 constexpr int kRowBytes = 128;
-constexpr uint32_t kBlockBox = kBlockRows * kRowBytes;   // 16 KB
 constexpr uint32_t kTileBox = kTile * kRowBytes;         // 8 KB
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 template <int D>
 struct Dims {
-  static_assert(D == 64 || D == 80 || D == 96 || D == 128, "head dim");
-  static constexpr int kBoxes = D > kBox ? 2 : 1;   // 64-column boxes per row
-  static constexpr int kN1 = D - kBox;              // output columns of the second box
-  static constexpr int kKSteps = D / 16;            // k steps of a product over D
+  static_assert(D == 64 || D == 80 || D == 96 || D == 128 || D == 256, "head dim");
+  static constexpr int kBoxes = (D + kBox - 1) / kBox;   // 64-column boxes per row
+  // output columns of the second box, for a warpgroup's accumulator (at
+  // most 128 columns wide, two boxes)
+  static constexpr int kN1 = D - kBox;
+  static constexpr int kKSteps = D / 16;                 // k steps of a product over D
+};
+
+// How a block's two consumer warpgroups share its work at head dims (D,
+// DV).  Up to 128 columns each warpgroup owns 64 rows (a block 128) and
+// keeps their accumulators whole, two 64-column boxes at most.  At 256 a
+// warpgroup could not hold them (dK and dV alone would be 256 f32 registers
+// a thread), so both warpgroups take the same 64 rows, each computes their
+// scores over the whole head, and each accumulates and stores its own half
+// of the output columns: the footprint of D 128, the scores computed twice.
+template <int D, int DV>
+struct Split {
+  static constexpr int kWays = (D > 128 || DV > 128) ? 2 : 1;  // warpgroups per row
+  static_assert(kWays == 1 || (D == 256 && DV == 256), "split head dims");
+  static constexpr int kRows = 128 / kWays;                     // rows of a block
+  static constexpr int kW = D / kWays, kWV = DV / kWays;        // a warpgroup's columns
+  static constexpr uint32_t kBlockBox = kRows * kRowBytes;      // one box of the block's rows
+  // the backward's ring: three stages, two where three do not fit
+  static constexpr int kBwdStages = kWays == 1 ? kStages : 2;
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -746,13 +786,15 @@ __device__ __forceinline__ int acc_col(int i, int lane) {
 }
 __device__ __forceinline__ int acc_half(int i) { return (i / 2) % 2; }
 
-// d += A(registers) x the tile's first D columns (MN-major, k = tile rows):
-// a 64-wide product on the first box and a (D - 64)-wide one on the second
+// d += A(registers) x D columns of a tile from its box at `tile` on
+// (MN-major, k = tile rows): a 64-wide product on the first box and a
+// (D - 64)-wide one on the second
 template <int D>
 __device__ __forceinline__ void mma_rows(float (&d0)[32],
                                          float (&d1)[Dims<D>::kN1 > 0 ? Dims<D>::kN1 / 2 : 1],
                                          const uint32_t (&a)[4][4], uint32_t tile,
                                          uint32_t box_bytes) {
+  static_assert(D <= 128, "a warpgroup accumulates at most two boxes");
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     mma_rs<64>(d0, a[kk], desc(tile + kk * 16 * kRowBytes));
@@ -775,17 +817,20 @@ __device__ __forceinline__ void mma_dots(float (&d)[32], uint32_t a_rows,
   }
 }
 
-// write a warpgroup's 64 x D accumulator rows (scaled) to a (B, T, H, D) tensor
-template <int D>
+// write a warpgroup's 64 x D accumulator rows (scaled) to columns [col0,
+// col0 + D) of a (B, T, H, kWidth) tensor
+template <int D, int kWidth = D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&d0)[32],
                                            const float (&d1)[Dims<D>::kN1 > 0 ? Dims<D>::kN1 / 2 : 1],
                                            const float (&mul)[2], int row0, int t,
-                                           int b, int heads, int h, int lane) {
+                                           int b, int heads, int h, int lane,
+                                           int col0 = 0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= t) continue;
-    __nv_bfloat16* dst = out + ((static_cast<size_t>(b) * t + row) * heads + h) * D;
+    __nv_bfloat16* dst =
+        out + ((static_cast<size_t>(b) * t + row) * heads + h) * kWidth + col0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * half;
@@ -826,29 +871,44 @@ __device__ __forceinline__ uint32_t aligned_base(uint8_t* raw) {
   return (smem_addr(raw) + 1023u) & ~1023u;
 }
 
+// The last key each of a thread's two accumulator rows (row0, row0 + 8)
+// sees: the last below Tk, and with causal the row's diagonal (q_pos = row
+// + Tk - Tq) or the last prefix key, whichever is later.  One comparison
+// per score then masks an edge tile.
+__device__ __forceinline__ void visible_keys(int (&last_key)[2], int row0, int q_off,
+                                             int tk, int causal, int prefix_len) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    last_key[r] = causal ? min(tk - 1, max(row0 + 8 * r + q_off, prefix_len - 1)) : tk - 1;
+  }
+}
+
 template <int D, int DV>
 constexpr size_t fwd_smem() {
-  return 1024 + Dims<D>::kBoxes * kBlockBox +
+  return 1024 + Dims<D>::kBoxes * Split<D, DV>::kBlockBox +
          kFwdStages * (Dims<D>::kBoxes + Dims<DV>::kBoxes) * kTileBox + 8 * 8;
 }
 
 // Forward.  Grid (Hq, B, q tiles), the last q tile (the longest causal rows)
-// first.  Warpgroup wg owns rows q0 + 64 wg ...; the producer warp loads Q
-// once and streams K and V tiles through the ring.  S = Q K^T runs over D,
-// O += P V and the output over DV.
+// first.  Warpgroup wg owns rows q0 + 64 (wg / kWays) ... and output columns
+// (wg % kWays) kWV ...; the producer warp loads Q once and streams K and V
+// tiles through the ring.  S = Q K^T runs over D, O += P V and the output
+// over the warpgroup's columns of DV.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsH, 1)
 fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq, int tk,
-           int hq, int hkv, float scale_log2, int causal) {
+           int hq, int hkv, float scale_log2, int causal, int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
+  using S = Split<D, DV>;
+  using GW = Dims<S::kWV>;   // the output columns of one warpgroup
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t k_stage = G::kBoxes * kTileBox, v_stage = GV::kBoxes * kTileBox;
   const uint32_t q_s = aligned_base(smem_raw);
-  const uint32_t k_s = q_s + G::kBoxes * kBlockBox;
+  const uint32_t k_s = q_s + G::kBoxes * S::kBlockBox;
   const uint32_t v_s = k_s + kFwdStages * k_stage;
   const uint32_t bars = v_s + kFwdStages * v_stage;
   const uint32_t q_full = bars;
@@ -857,10 +917,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * kFwdStages + s); };
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * S::kRows;
   const int hk = h / (hq / hkv);
   const int q_off = tk - tq;
-  const int k_end = causal ? min(tk, min(q0 + kBlockRows, tq) + q_off) : tk;
+  // causal: the keys up to the last row's diagonal, and the prefix
+  const int k_end = causal ? min(tk, max(prefix_len, min(q0 + S::kRows, tq) + q_off)) : tk;
   const int n_tiles = (k_end + kTile - 1) / kTile;
 
   if (threadIdx.x == 0) {
@@ -877,8 +938,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 8) {   // producer
     if (lane == 0) {
-      mbar_expect_tx(q_full, G::kBoxes * kBlockBox);
-      tma_rows<D>(q_s, kBlockBox, &q_map, q_full, h, q0, b);
+      mbar_expect_tx(q_full, G::kBoxes * S::kBlockBox);
+      tma_rows<D>(q_s, S::kBlockBox, &q_map, q_full, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kFwdStages;
         if (i >= kFwdStages) mbar_wait(empty(s), ((i / kFwdStages) & 1) ^ 1);
@@ -892,13 +953,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   const int wg = warp / 4;
-  const int first = q0 + 64 * wg;                       // the warpgroup's first row
+  const int part = wg % S::kWays;                       // the warpgroup's share of DV
+  const int first = q0 + 64 * (wg / S::kWays);          // the warpgroup's first row
   const int row0 = first + 16 * (warp % 4) + lane / 4;  // this thread's rows: row0, row0 + 8
-  float o0[32], o1[GV::kN1 > 0 ? GV::kN1 / 2 : 1];
+  int last_key[2];
+  visible_keys(last_key, row0, q_off, tk, causal, prefix_len);
+  float o0[32], o1[GW::kN1 > 0 ? GW::kN1 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) o0[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (GV::kN1 > 0 ? GV::kN1 / 2 : 1); ++i) o1[i] = 0.f;
+  for (int i = 0; i < (GW::kN1 > 0 ? GW::kN1 / 2 : 1); ++i) o1[i] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
 
   mbar_wait(q_full, 0);
@@ -906,27 +970,28 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     const int s = i % kFwdStages;
     const uint32_t ph = (i / kFwdStages) & 1;
     const int k0 = i * kTile;
-    // a tile wholly after this warpgroup's last diagonal adds nothing
-    const bool live = !causal || k0 <= first + 63 + q_off;
+    // a tile wholly after this warpgroup's last diagonal and past the
+    // prefix adds nothing
+    const bool live = !causal || k0 <= first + 63 + q_off || k0 < prefix_len;
     mbar_wait(k_full(s), ph);
     if (live) {
       float sc[32];
       wg_fence();
-      mma_dots<D>(sc, q_s + 64 * wg * kRowBytes, kBlockBox, k_s + s * k_stage, kTileBox);
+      mma_dots<D>(sc, q_s + 64 * (wg / S::kWays) * kRowBytes, S::kBlockBox,
+                  k_s + s * k_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(sc);
 
-      const bool edge = k0 + kTile > tk || (causal && k0 + kTile - 1 > first + q_off);
+      // a key is hidden from a row past Tk, or (causal) after the row's
+      // diagonal and past the prefix
+      const bool edge = k0 + kTile > tk ||
+                        (causal && k0 + kTile - 1 > first + q_off && k0 + kTile > prefix_len);
       float mx[2] = {m[0], m[1]};
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         float x = sc[j] * scale_log2;
-        if (edge) {
-          const int key = k0 + acc_col(j, lane);
-          const int q_pos = row0 + 8 * acc_half(j) + q_off;
-          if (key >= tk || (causal && key > q_pos)) x = kNegInf;
-        }
+        if (edge && k0 + acc_col(j, lane) > last_key[acc_half(j)]) x = kNegInf;
         sc[j] = x;
         mx[acc_half(j)] = fmaxf(mx[acc_half(j)], x);
       }
@@ -946,7 +1011,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
         o0[j] *= corr[acc_half(j)];
       }
 #pragma unroll
-      for (int j = 0; j < (GV::kN1 > 0 ? GV::kN1 / 2 : 0); ++j) o1[j] *= corr[acc_half(j)];
+      for (int j = 0; j < (GW::kN1 > 0 ? GW::kN1 / 2 : 0); ++j) o1[j] *= corr[acc_half(j)];
       uint32_t a[4][4];
       to_a(sc, a);
 
@@ -954,7 +1019,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
       wg_fence();
       hold(o0);
       hold(o1);
-      mma_rows<DV>(o0, o1, a, v_s + s * v_stage, kTileBox);
+      mma_rows<S::kWV>(o0, o1, a, v_s + s * v_stage + part * (S::kWV / kBox) * kTileBox,
+                       kTileBox);
       wg_commit();
       wg_wait();
       hold(o0);
@@ -970,8 +1036,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  store_rows<DV>(o, o0, o1, inv, row0, tq, b, hq, h, lane);
-  if (lane % 4 == 0) {
+  store_rows<S::kWV, DV>(o, o0, o1, inv, row0, tq, b, hq, h, lane, part * S::kWV);
+  if (lane % 4 == 0 && part == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int row = row0 + 8 * r;
@@ -985,13 +1051,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
 // delta[b, h, t] = dO[b, t, h] . O[b, t, h].  Rows of (B, T, H, D) are
 // contiguous, so a warp reads its 8 rows as one span of 16-byte loads,
 // keeps each load's dot product in shared memory, and lane r < 8 sums row
-// r's in order.
-constexpr int kDeltaWarps = 8, kDeltaRows = 8;
+// r's in order.  A row of d <= 256 columns is at most 32 loads.
+constexpr int kDeltaWarps = 8, kDeltaRows = 8, kDeltaLoads = 256 / 8;
 
 __global__ void __launch_bounds__(kDeltaWarps * 32)
 delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
              float* __restrict__ delta, long long rows, int tq, int hq, int d) {
-  __shared__ float part[kDeltaWarps][kDeltaRows * 16];
+  __shared__ float part[kDeltaWarps][kDeltaRows * kDeltaLoads];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const long long row0 =
       (static_cast<long long>(blockIdx.x) * kDeltaWarps + warp) * kDeltaRows;
@@ -1025,13 +1091,16 @@ delta_kernel(const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restric
 
 template <int D, int DV>
 constexpr size_t dq_smem() {
-  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) * (kBlockBox + kStages * kTileBox) +
+  using S = Split<D, DV>;
+  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) *
+                    (S::kBlockBox + S::kBwdStages * kTileBox) +
          8 * 8;
 }
 
 // dQ.  Grid (Hq, B, q tiles), longest causal rows first; the producer loads
-// Q and dO once and streams K and V tiles up to the diagonal.  S = Q K^T and
-// dQ = dS K run over D, dP = dO V^T over DV.
+// Q and dO once and streams K and V tiles up to the diagonal (and over the
+// prefix).  S = Q K^T runs over D and dP = dO V^T over DV; dQ = dS K over
+// the warpgroup's columns of D.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsH, 1)
 dq_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1040,31 +1109,34 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap do_map,
           const float* __restrict__ lse, const float* __restrict__ delta,
           __nv_bfloat16* __restrict__ dq, int tq, int tk, int hq, int hkv,
-          float scale, float scale_log2, int causal) {
+          float scale, float scale_log2, int causal, int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
+  using S = Split<D, DV>;
+  using GW = Dims<S::kW>;   // the dQ columns of one warpgroup
+  constexpr int kSt = S::kBwdStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t k_stage = G::kBoxes * kTileBox, v_stage = GV::kBoxes * kTileBox;
   const uint32_t q_s = aligned_base(smem_raw);
-  const uint32_t do_s = q_s + G::kBoxes * kBlockBox;
-  const uint32_t k_s = do_s + GV::kBoxes * kBlockBox;
-  const uint32_t v_s = k_s + kStages * k_stage;
-  const uint32_t bars = v_s + kStages * v_stage;
+  const uint32_t do_s = q_s + G::kBoxes * S::kBlockBox;
+  const uint32_t k_s = do_s + GV::kBoxes * S::kBlockBox;
+  const uint32_t v_s = k_s + kSt * k_stage;
+  const uint32_t bars = v_s + kSt * v_stage;
   const uint32_t qd_full = bars;
   auto k_full = [&](int s) { return bars + 8 * (1 + s); };
-  auto v_full = [&](int s) { return bars + 8 * (1 + kStages + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + 2 * kStages + s); };
+  auto v_full = [&](int s) { return bars + 8 * (1 + kSt + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + 2 * kSt + s); };
 
   const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBlockRows;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * S::kRows;
   const int hk = h / (hq / hkv);
   const int q_off = tk - tq;
-  const int k_end = causal ? min(tk, min(q0 + kBlockRows, tq) + q_off) : tk;
+  const int k_end = causal ? min(tk, max(prefix_len, min(q0 + S::kRows, tq) + q_off)) : tk;
   const int n_tiles = (k_end + kTile - 1) / kTile;
 
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(k_full(s), 1);
       mbar_init(v_full(s), 1);
       mbar_init(empty(s), 2 * kWG);
@@ -1076,12 +1148,12 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   if (warp == 8) {   // producer
     if (lane == 0) {
-      mbar_expect_tx(qd_full, (G::kBoxes + GV::kBoxes) * kBlockBox);
-      tma_rows<D>(q_s, kBlockBox, &q_map, qd_full, h, q0, b);
-      tma_rows<DV>(do_s, kBlockBox, &do_map, qd_full, h, q0, b);
+      mbar_expect_tx(qd_full, (G::kBoxes + GV::kBoxes) * S::kBlockBox);
+      tma_rows<D>(q_s, S::kBlockBox, &q_map, qd_full, h, q0, b);
+      tma_rows<DV>(do_s, S::kBlockBox, &do_map, qd_full, h, q0, b);
       for (int i = 0; i < n_tiles; ++i) {
-        const int s = i % kStages;
-        if (i >= kStages) mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+        const int s = i % kSt;
+        if (i >= kSt) mbar_wait(empty(s), ((i / kSt) & 1) ^ 1);
         mbar_expect_tx(k_full(s), k_stage);
         tma_rows<D>(k_s + s * k_stage, kTileBox, &k_map, k_full(s), hk, i * kTile, b);
         mbar_expect_tx(v_full(s), v_stage);
@@ -1092,8 +1164,11 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 
   const int wg = warp / 4;
-  const int first = q0 + 64 * wg;
+  const int part = wg % S::kWays;                       // the warpgroup's share of D
+  const int first = q0 + 64 * (wg / S::kWays);
   const int row0 = first + 16 * (warp % 4) + lane / 4;
+  int last_key[2];
+  visible_keys(last_key, row0, q_off, tk, causal, prefix_len);
   float lse2[2], dlt[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1101,45 +1176,47 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     lse2[r] = lse[at] * kLog2e;
     dlt[r] = delta[at];
   }
-  float g0[32], g1[G::kN1 > 0 ? G::kN1 / 2 : 1];
+  float g0[32], g1[GW::kN1 > 0 ? GW::kN1 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) g0[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (G::kN1 > 0 ? G::kN1 / 2 : 1); ++i) g1[i] = 0.f;
+  for (int i = 0; i < (GW::kN1 > 0 ? GW::kN1 / 2 : 1); ++i) g1[i] = 0.f;
 
-  // Only the tiles up to this warpgroup's last diagonal (the first n_live)
-  // are computed, and dS K of tile i - 1 runs on the tensor cores while dS
-  // of tile i is formed.
-  const int n_live = causal ? min(n_tiles, (first + 63 + q_off) / kTile + 1) : n_tiles;
-  const uint32_t my_q = q_s + 64 * wg * kRowBytes, my_do = do_s + 64 * wg * kRowBytes;
+  // Only the tiles up to this warpgroup's last diagonal or over the prefix
+  // (the first n_live) are computed, and dS K of tile i - 1 runs on the
+  // tensor cores while dS of tile i is formed.
+  const int n_live =
+      causal ? min(n_tiles, max((first + 63 + q_off) / kTile + 1, (prefix_len + kTile - 1) / kTile))
+             : n_tiles;
+  const uint32_t my_q = q_s + 64 * (wg / S::kWays) * kRowBytes;
+  const uint32_t my_do = do_s + 64 * (wg / S::kWays) * kRowBytes;
+  const uint32_t my_cols = part * (S::kW / kBox) * kTileBox;   // K's columns of my dQ
   auto dots = [&](float (&sc)[32], float (&dp)[32], int i) {
-    const int s = i % kStages;
-    mbar_wait(k_full(s), (i / kStages) & 1);
-    mbar_wait(v_full(s), (i / kStages) & 1);
+    const int s = i % kSt;
+    mbar_wait(k_full(s), (i / kSt) & 1);
+    mbar_wait(v_full(s), (i / kSt) & 1);
     wg_fence();
-    mma_dots<D>(sc, my_q, kBlockBox, k_s + s * k_stage, kTileBox);
-    mma_dots<DV>(dp, my_do, kBlockBox, v_s + s * v_stage, kTileBox);
+    mma_dots<D>(sc, my_q, S::kBlockBox, k_s + s * k_stage, kTileBox);
+    mma_dots<DV>(dp, my_do, S::kBlockBox, v_s + s * v_stage, kTileBox);
     wg_commit();
   };
   auto grad = [&](const uint32_t (&a)[4][4], int i) {
     wg_fence();
     hold(g0);
     hold(g1);
-    mma_rows<D>(g0, g1, a, k_s + (i % kStages) * k_stage, kTileBox);
+    mma_rows<S::kW>(g0, g1, a, k_s + (i % kSt) * k_stage + my_cols, kTileBox);
     wg_commit();
   };
   // sc (scores) -> dS = P (dP - delta) in place
   auto dscores = [&](float (&sc)[32], const float (&dp)[32], int i) {
     const int k0 = i * kTile;
-    const bool edge = k0 + kTile > tk || (causal && k0 + kTile - 1 > first + q_off);
+    const bool edge = k0 + kTile > tk ||
+                      (causal && k0 + kTile - 1 > first + q_off && k0 + kTile > prefix_len);
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int r = acc_half(j);
       float p = ex2(sc[j] * scale_log2 - lse2[r]);
-      if (edge) {
-        const int key = k0 + acc_col(j, lane);
-        if (key >= tk || (causal && key > row0 + 8 * r + q_off)) p = 0.f;
-      }
+      if (edge && k0 + acc_col(j, lane) > last_key[r]) p = 0.f;
       sc[j] = p * (dp[j] - dlt[r]);
     }
   };
@@ -1164,7 +1241,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     hold(g0);
     hold(g1);
     hold(a);
-    mbar_arrive(empty((i - 1) % kStages));
+    mbar_arrive(empty((i - 1) % kSt));
     to_a(sc, a);
   }
   grad(a, n_live - 1);
@@ -1172,26 +1249,30 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   hold(g0);
   hold(g1);
   hold(a);
-  mbar_arrive(empty((n_live - 1) % kStages));
+  mbar_arrive(empty((n_live - 1) % kSt));
   for (int i = n_live; i < n_tiles; ++i) {
-    mbar_wait(k_full(i % kStages), (i / kStages) & 1);
-    mbar_arrive(empty(i % kStages));
+    mbar_wait(k_full(i % kSt), (i / kSt) & 1);
+    mbar_arrive(empty(i % kSt));
   }
   const float mul[2] = {scale, scale};
-  store_rows<D>(dq, g0, g1, mul, row0, tq, b, hq, h, lane);
+  store_rows<S::kW, D>(dq, g0, g1, mul, row0, tq, b, hq, h, lane, part * S::kW);
 }
 
 template <int D, int DV>
 constexpr size_t dkdv_smem() {
-  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) * (kBlockBox + kStages * kTileBox) +
-         kStages * 2 * kTile * sizeof(float) + 8 * 8;
+  using S = Split<D, DV>;
+  return 1024 + (Dims<D>::kBoxes + Dims<DV>::kBoxes) *
+                    (S::kBlockBox + S::kBwdStages * kTileBox) +
+         S::kBwdStages * 2 * kTile * sizeof(float) + 8 * 8;
 }
 
 // dK and dV.  Grid (Hkv, B, k tiles), the first keys (the most q tiles)
-// first.  Warpgroup wg owns keys k0 + 64 wg ...; the producer loads K and V
-// once and streams, for each head of the group in turn, the Q and dO tiles
-// from the diagonal on with their rows' lse and delta.  S^T = K Q^T and
-// dK = dS^T Q run over D, dP^T = V dO^T and dV = P^T dO over DV.
+// first.  Warpgroup wg owns keys k0 + 64 (wg / kWays) ... and its share
+// (wg % kWays) of the columns; the producer loads K and V once and streams,
+// for each head of the group in turn, the Q and dO tiles from the diagonal
+// on (from the first, where the block holds prefix keys) with their rows'
+// lse and delta.  S^T = K Q^T runs over D and dP^T = V dO^T over DV; dK =
+// dS^T Q and dV = P^T dO over the warpgroup's columns of D and DV.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreadsKV, 1)
 dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -1200,35 +1281,41 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap do_map,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq,
-            int tk, int hq, int hkv, float scale, float scale_log2, int causal) {
+            int tk, int hq, int hkv, float scale, float scale_log2, int causal,
+            int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
+  using S = Split<D, DV>;
+  using GW = Dims<S::kW>;     // the dK columns of one warpgroup
+  using GWV = Dims<S::kWV>;   // and its dV columns
+  constexpr int kSt = S::kBwdStages;
   extern __shared__ __align__(1024) uint8_t smem_raw[];
   const uint32_t q_stage = G::kBoxes * kTileBox, do_stage = GV::kBoxes * kTileBox;
   const uint32_t k_s = aligned_base(smem_raw);
-  const uint32_t v_s = k_s + G::kBoxes * kBlockBox;
-  const uint32_t q_s = v_s + GV::kBoxes * kBlockBox;
-  const uint32_t do_s = q_s + kStages * q_stage;
-  const uint32_t stats = do_s + kStages * do_stage;   // (lse2, delta) per stage
-  const uint32_t bars = stats + kStages * 2 * kTile * sizeof(float);
+  const uint32_t v_s = k_s + G::kBoxes * S::kBlockBox;
+  const uint32_t q_s = v_s + GV::kBoxes * S::kBlockBox;
+  const uint32_t do_s = q_s + kSt * q_stage;
+  const uint32_t stats = do_s + kSt * do_stage;   // (lse2, delta) per stage
+  const uint32_t bars = stats + kSt * 2 * kTile * sizeof(float);
   const uint32_t kv_full = bars;
   auto full = [&](int s) { return bars + 8 * (1 + s); };
-  auto empty = [&](int s) { return bars + 8 * (1 + kStages + s); };
+  auto empty = [&](int s) { return bars + 8 * (1 + kSt + s); };
   // generic pointer to the stats, for plain loads and stores
   float* stats_p = reinterpret_cast<float*>(smem_raw + (stats - smem_addr(smem_raw)));
 
   const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * kBlockRows;
+  const int k0 = blockIdx.z * S::kRows;
   const int g = hq / hkv;
   const int q_off = tk - tq;
-  // the first q tile with a row that sees any of these keys
-  const int q_begin = causal ? max(0, k0 - q_off) / kTile * kTile : 0;
+  // the first q tile with a row that sees any of these keys (every row
+  // sees a prefix key)
+  const int q_begin = causal && k0 >= prefix_len ? max(0, k0 - q_off) / kTile * kTile : 0;
   const int per_head = (tq - q_begin + kTile - 1) / kTile;
   const int n_steps = g * max(per_head, 0);
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kSt; ++s) {
       mbar_init(full(s), 32);
       mbar_init(empty(s), 2 * kWG);
     }
@@ -1241,15 +1328,15 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     regs_give<kProducerRegs>();
     if (warp > 8) return;
     if (lane == 0) {
-      mbar_expect_tx(kv_full, (G::kBoxes + GV::kBoxes) * kBlockBox);
-      tma_rows<D>(k_s, kBlockBox, &k_map, kv_full, hk, k0, b);
-      tma_rows<DV>(v_s, kBlockBox, &v_map, kv_full, hk, k0, b);
+      mbar_expect_tx(kv_full, (G::kBoxes + GV::kBoxes) * S::kBlockBox);
+      tma_rows<D>(k_s, S::kBlockBox, &k_map, kv_full, hk, k0, b);
+      tma_rows<DV>(v_s, S::kBlockBox, &v_map, kv_full, hk, k0, b);
     }
     for (int i = 0; i < n_steps; ++i) {
-      const int s = i % kStages;
+      const int s = i % kSt;
       const int h = hk * g + i / per_head;
       const int qs = q_begin + (i % per_head) * kTile;
-      if (i >= kStages) mbar_wait(empty(s), ((i / kStages) & 1) ^ 1);
+      if (i >= kSt) mbar_wait(empty(s), ((i / kSt) & 1) ^ 1);
       float* st = stats_p + s * 2 * kTile;
       for (int r = lane; r < kTile; r += 32) {
         const int row = qs + r;
@@ -1270,34 +1357,48 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 
   regs_take<kConsumerRegs>();
   const int wg = warp / 4;
-  const int first = k0 + 64 * wg;                       // the warpgroup's first key
+  const int part = wg % S::kWays;                       // the warpgroup's share of D, DV
+  const int first = k0 + 64 * (wg / S::kWays);          // the warpgroup's first key
   const int key0 = first + 16 * (warp % 4) + lane / 4;  // this thread's keys: key0, key0 + 8
-  float dk0[32], dk1[G::kN1 > 0 ? G::kN1 / 2 : 1];
-  float dv0[32], dv1[GV::kN1 > 0 ? GV::kN1 / 2 : 1];
+  // the first row that sees each of this thread's keys (none past Tk;
+  // causal: the key's diagonal, unless it is in the prefix)
+  int first_row[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    first_row[h] = key >= tk ? INT_MAX : causal && key >= prefix_len ? key - q_off : 0;
+  }
+  float dk0[32], dk1[GW::kN1 > 0 ? GW::kN1 / 2 : 1];
+  float dv0[32], dv1[GWV::kN1 > 0 ? GWV::kN1 / 2 : 1];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk0[i] = dv0[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (G::kN1 > 0 ? G::kN1 / 2 : 1); ++i) dk1[i] = 0.f;
+  for (int i = 0; i < (GW::kN1 > 0 ? GW::kN1 / 2 : 1); ++i) dk1[i] = 0.f;
 #pragma unroll
-  for (int i = 0; i < (GV::kN1 > 0 ? GV::kN1 / 2 : 1); ++i) dv1[i] = 0.f;
+  for (int i = 0; i < (GWV::kN1 > 0 ? GWV::kN1 / 2 : 1); ++i) dv1[i] = 0.f;
 
   mbar_wait(kv_full, 0);
-  const uint32_t my_k = k_s + 64 * wg * kRowBytes, my_v = v_s + 64 * wg * kRowBytes;
+  const uint32_t my_k = k_s + 64 * (wg / S::kWays) * kRowBytes;
+  const uint32_t my_v = v_s + 64 * (wg / S::kWays) * kRowBytes;
+  // the columns of the streamed Q and dO tiles that my dK and dV take
+  const uint32_t q_cols = part * (S::kW / kBox) * kTileBox;
+  const uint32_t do_cols = part * (S::kWV / kBox) * kTileBox;
   for (int i = 0; i < n_steps; ++i) {
-    const int s = i % kStages;
-    const uint32_t ph = (i / kStages) & 1;
+    const int s = i % kSt;
+    const uint32_t ph = (i / kSt) & 1;
     const int qs = q_begin + (i % per_head) * kTile;
-    // a q tile whose last row is before this warpgroup's first key adds nothing
-    const bool live = !causal || qs + kTile - 1 + q_off >= first;
+    // a q tile whose last row is before this warpgroup's first key adds
+    // nothing, unless that key is in the prefix
+    const bool live = !causal || qs + kTile - 1 + q_off >= first || first < prefix_len;
     mbar_wait(full(s), ph);
     if (live) {
       const float* st = stats_p + s * 2 * kTile;
       const bool edge = qs + kTile > tq || first + 64 > tk ||
-                        (causal && first + 63 > qs + q_off);
+                        (causal && first + 63 > qs + q_off && first + 64 > prefix_len);
       float sc[32], dp[32];
       wg_fence();
-      mma_dots<D>(sc, my_k, kBlockBox, q_s + s * q_stage, kTileBox);
-      mma_dots<DV>(dp, my_v, kBlockBox, do_s + s * do_stage, kTileBox);
+      mma_dots<D>(sc, my_k, S::kBlockBox, q_s + s * q_stage, kTileBox);
+      mma_dots<DV>(dp, my_v, S::kBlockBox, do_s + s * do_stage, kTileBox);
       wg_commit();
       wg_wait();
       hold(sc);
@@ -1306,10 +1407,7 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       for (int j = 0; j < 32; ++j) {
         const int col = acc_col(j, lane);
         float p = ex2(sc[j] * scale_log2 - st[col]);
-        if (edge) {
-          const int key = key0 + 8 * acc_half(j), row = qs + col;
-          if (row >= tq || key >= tk || (causal && key > row + q_off)) p = 0.f;
-        }
+        if (edge && (qs + col < first_row[acc_half(j)] || qs + col >= tq)) p = 0.f;
         sc[j] = p;
         dp[j] = p * (dp[j] - st[kTile + col]);
       }
@@ -1321,8 +1419,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
       hold(dv1);
       hold(dk0);
       hold(dk1);
-      mma_rows<DV>(dv0, dv1, ap, do_s + s * do_stage, kTileBox);
-      mma_rows<D>(dk0, dk1, ads, q_s + s * q_stage, kTileBox);
+      mma_rows<S::kWV>(dv0, dv1, ap, do_s + s * do_stage + do_cols, kTileBox);
+      mma_rows<S::kW>(dk0, dk1, ads, q_s + s * q_stage + q_cols, kTileBox);
       wg_commit();
       wg_wait();
       hold(dv0);
@@ -1335,8 +1433,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(empty(s));
   }
   const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-  store_rows<DV>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane);
-  store_rows<D>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane);
+  store_rows<S::kWV, DV>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane, part * S::kWV);
+  store_rows<S::kW, D>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane, part * S::kW);
 }
 
 }  // namespace hopper
@@ -1346,9 +1444,11 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------- //
 
 // Tq > Tk is refused only when causal: the causal offset Tk - Tq must be >= 0
-bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int dv, int causal) {
+bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int dv, int causal,
+               int prefix_len) {
   return b < 1 || tq < 1 || tk < 1 || (causal && tk < tq) || hkv < 1 || hq % hkv != 0 ||
-         d % 8 != 0 || d < 8 || d > 256 || dv % 8 != 0 || dv < 8 || dv > 256;
+         d % 8 != 0 || d < 8 || d > 256 || dv % 8 != 0 || dv < 8 || dv > 256 ||
+         prefix_len < 0;
 }
 
 // opt in to more than 48 KB of dynamic shared memory where needed
@@ -1371,7 +1471,7 @@ size_t f32_smem(int d, int dv, bool dv_transposed) {
 template <typename T, int NC>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b,
         int tq, int tk, int hq, int hkv, int d, int dv, float scale, int causal,
-        cudaStream_t stream) {
+        int prefix_len, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, NC>;
   const size_t smem = f32_smem(d, dv, false);
   const dim3 grid((tq + kTile - 1) / kTile, hq, b);
@@ -1379,7 +1479,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b,
   if (err) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, tq, tk, hq, hkv, d, dv, scale, causal);
+      static_cast<T*>(o), lse, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1387,7 +1487,7 @@ template <typename T, int NC>
 int bwd(const void* q, const void* k, const void* v, const void* o,
         const void* dout, const float* lse, float* delta, void* dq, void* dk,
         void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v, float scale,
-        int causal, cudaStream_t stream) {
+        int causal, int prefix_len, cudaStream_t stream) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1406,7 +1506,7 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
   dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
       qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq, hkv, d, d_v,
-      scale, causal);
+      scale, causal, prefix_len);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
@@ -1417,7 +1517,7 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
   kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
       qt, kt, vt, got, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk,
-      hq, hkv, d, d_v, scale, causal);
+      hq, hkv, d, d_v, scale, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1493,10 +1593,11 @@ int blocks_of(int n, int rows) { return (n + rows - 1) / rows; }
 
 template <int D, int DV>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-             int tq, int tk, int hq, int hkv, float scale, int causal,
+             int tq, int tk, int hq, int hkv, float scale, int causal, int prefix_len,
              cudaStream_t stream) {
+  constexpr int kRows = hopper::Split<D, DV>::kRows;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kBlockRows) ||
+  if (!tensor_map(&mq, q, b, tq, hq, D, kRows) ||
       !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
       !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1505,9 +1606,9 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   const size_t smem = hopper::fwd_smem<D, DV>();
   const int err = allow_smem(kernel, smem);
   if (err) return err;
-  kernel<<<dim3(hq, b, blocks_of(tq, hopper::kBlockRows)), hopper::kThreadsH, smem, stream>>>(
+  kernel<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, tq, tk, hq, hkv,
-      scale * hopper::kLog2e, causal);
+      scale * hopper::kLog2e, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1515,7 +1616,8 @@ template <int D, int DV>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq, void* dk,
              void* dv, int b, int tq, int tk, int hq, int hkv, float scale, int causal,
-             cudaStream_t stream) {
+             int prefix_len, cudaStream_t stream) {
+  constexpr int kRows = hopper::Split<D, DV>::kRows;
   const long long rows = static_cast<long long>(b) * tq * hq;
   const long long per_block = hopper::kDeltaWarps * hopper::kDeltaRows;
   hopper::delta_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block),
@@ -1526,8 +1628,8 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
 
   CUtensorMap mq, mk, mv, mdo;
-  if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kBlockRows) ||
-      !tensor_map(&mdo, dout, b, tq, hq, DV, hopper::kBlockRows) ||
+  if (!tensor_map(&mq, q, b, tq, hq, D, kRows) ||
+      !tensor_map(&mdo, dout, b, tq, hq, DV, kRows) ||
       !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
       !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1535,32 +1637,34 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   auto dq_k = hopper::dq_kernel<D, DV>;
   err = allow_smem(dq_k, hopper::dq_smem<D, DV>());
   if (err) return err;
-  dq_k<<<dim3(hq, b, blocks_of(tq, hopper::kBlockRows)), hopper::kThreadsH,
+  dq_k<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH,
          hopper::dq_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), tq, tk, hq, hkv,
-      scale, scale * hopper::kLog2e, causal);
+      scale, scale * hopper::kLog2e, causal, prefix_len);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
-  // the dK/dV kernel holds 128 keys and streams 64-row q and dO tiles
+  // the dK/dV kernel holds a block of keys and streams 64-row q and dO tiles
   if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kTile) ||
       !tensor_map(&mdo, dout, b, tq, hq, DV, hopper::kTile) ||
-      !tensor_map(&mk, k, b, tk, hkv, D, hopper::kBlockRows) ||
-      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kBlockRows)) {
+      !tensor_map(&mk, k, b, tk, hkv, D, kRows) ||
+      !tensor_map(&mv, v, b, tk, hkv, DV, kRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kv_k = hopper::dkdv_kernel<D, DV>;
   err = allow_smem(kv_k, hopper::dkdv_smem<D, DV>());
   if (err) return err;
-  kv_k<<<dim3(hkv, b, blocks_of(tk, hopper::kBlockRows)), hopper::kThreadsKV,
+  kv_k<<<dim3(hkv, b, blocks_of(tk, kRows)), hopper::kThreadsKV,
          hopper::dkdv_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, scale, scale * hopper::kLog2e, causal);
+      static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, scale, scale * hopper::kLog2e, causal,
+      prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
 // f(D, DV) for the (qk, v) head-dim pairs the bfloat16 route instantiates:
-// the square 64, 80, 96 and 128, and (96, 64), MiniCPM3's MLA heads
+// the square 64, 80, 96, 128 and 256 (PaliGemma's heads), and (96, 64),
+// MiniCPM3's MLA heads
 template <typename F>
 int with_head_dims(int d, int dv, F&& f) {
   using std::integral_constant;
@@ -1570,6 +1674,7 @@ int with_head_dims(int d, int dv, F&& f) {
       case 80: return f(integral_constant<int, 80>{}, integral_constant<int, 80>{});
       case 96: return f(integral_constant<int, 96>{}, integral_constant<int, 96>{});
       case 128: return f(integral_constant<int, 128>{}, integral_constant<int, 128>{});
+      case 256: return f(integral_constant<int, 256>{}, integral_constant<int, 256>{});
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
@@ -1586,12 +1691,14 @@ int with_head_dims(int d, int dv, F&& f) {
 // with_head_dims); q, k, v, o and the gradients share it, lse and delta are
 // f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
 // v, dv (B, Tk, Hkv, dv), o, dO (B, Tq, Hq, dv); the bfloat16 route's are
-// 16-byte aligned.
+// 16-byte aligned.  prefix_len >= 0: with causal, the first prefix_len keys
+// are visible to every row (prefix-LM); without, it changes nothing.
 extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, void* lse, int b, int tq,
                                int tk, int hq, int hkv, int d, int dv, float scale,
-                               int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, dv, causal) || (dtype != 0 && dtype != 1)) {
+                               int causal, int prefix_len, void* stream) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, dv, causal, prefix_len) ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1599,13 +1706,13 @@ extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
   if (dtype == 1) {
     return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
       return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, l, b, tq, tk, hq, hkv, scale, causal, s);
+          q, k, v, o, l, b, tq, tk, hq, hkv, scale, causal, prefix_len, s);
     });
   }
   // the forward's accumulators are the output's dv columns
   return with_nc(dv, [&](auto nc) {
     return fwd<float, decltype(nc)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv,
-                                           scale, causal, s);
+                                           scale, causal, prefix_len, s);
   });
 }
 
@@ -1613,8 +1720,10 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
                                const void* v, const void* o, const void* dout,
                                const void* lse, void* delta, void* dq, void* dk,
                                void* dv, int b, int tq, int tk, int hq, int hkv,
-                               int d, int d_v, float scale, int causal, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, d_v, causal) || (dtype != 0 && dtype != 1)) {
+                               int d, int d_v, float scale, int causal, int prefix_len,
+                               void* stream) {
+  if (bad_shape(b, tq, tk, hq, hkv, d, d_v, causal, prefix_len) ||
+      (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1623,13 +1732,15 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
   if (dtype == 1) {
     return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
       return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, scale, causal, s);
+          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, scale, causal,
+          prefix_len, s);
     });
   }
   // dQ's accumulators are d wide, dK's d and dV's d_v: one count for both
   return with_nc(d > d_v ? d : d_v, [&](auto nc) {
     return bwd<float, decltype(nc)::value>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq,
-                                           tk, hq, hkv, d, d_v, scale, causal, s);
+                                           tk, hq, hkv, d, d_v, scale, causal, prefix_len,
+                                           s);
   });
 }
 

@@ -14,6 +14,9 @@ cores (``wgmma`` fed by TMA, the (qk, v) head-dim pairs
 :data:`BF16_PAIRS`), float32 in exact f32 on the CUDA cores.  As in the
 TPU kernel, V may be narrower or wider than Q and K: ``v (B, Tk, Hkv,
 Dv)`` gives an output ``(B, Tq, Hq, Dv)``, natively in every kernel.
+Both routes take the reference model's prefix-LM mask (``prefix_len``:
+with ``causal``, the first ``prefix_len`` keys are visible to every
+row), which the reference's Pallas dispatch drops.
 
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
@@ -32,17 +35,17 @@ import torch
 from repro_torch.kernels import _build
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-# the bfloat16 (tensor-core) route's instantiations: square head dims, and
-# the (D, Dv) pairs with a V of its own width (MiniCPM3's MLA heads); float32
-# takes any D and Dv that are multiples of 8 up to 256
-BF16_HEAD_DIMS = (64, 80, 96, 128)
+# the bfloat16 (tensor-core) route's instantiations: square head dims (256:
+# PaliGemma's), and the (D, Dv) pairs with a V of its own width (MiniCPM3's
+# MLA heads); float32 takes any D and Dv that are multiples of 8 up to 256
+BF16_HEAD_DIMS = (64, 80, 96, 128, 256)
 BF16_PAIRS = tuple((d, d) for d in BF16_HEAD_DIMS) + ((96, 64),)
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           causal: bool, **outputs: torch.Tensor) -> None:
+           causal: bool, prefix_len: int = 0, **outputs: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: dtypes and shapes first
     (so a CPU tensor shows them too), then the device and the layout.
     ``outputs`` (the backward's ``out`` and ``dout``) must be (B, Tq, Hq,
@@ -75,6 +78,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if causal and tq > tk:
         raise ValueError(f"Tq={tq} > Tk={tk}: the kernel's causal offset "
                          "Tk - Tq must be >= 0 (so is the reference's)")
+    if prefix_len < 0:
+        raise ValueError(f"prefix_len={prefix_len} must be >= 0")
     for name, t in outputs.items():
         if tuple(t.shape) != (b, tq, hq, dv) or t.dtype != q.dtype:
             raise ValueError(f"{name} must be a {q.dtype} tensor of shape "
@@ -105,12 +110,19 @@ def _scale(d: int, scale: Optional[float]) -> float:
     return float(d ** -0.5) if scale is None else float(scale)
 
 
+def _prefix(k: torch.Tensor, prefix_len: int) -> int:
+    """The prefix as the kernels' C int takes it: clipped to Tk (a prefix
+    past the last key leaves every key visible, as Tk does)."""
+    return min(int(prefix_len), k.shape[1])
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        causal: bool = True, scale: Optional[float] = None
+                        causal: bool = True, scale: Optional[float] = None,
+                        prefix_len: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One forward launch: ``(out (B, Tq, Hq, Dv) in q's dtype, lse (B,
     Hq, Tq) f32)``."""
-    _check(q, k, v, causal)
+    _check(q, k, v, causal, prefix_len)
     b, tq, hq, d = q.shape
     tk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
     out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=q.device)
@@ -119,7 +131,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = lib.repro_flash_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, d, dv,
-        _scale(d, scale), int(causal),
+        _scale(d, scale), int(causal), _prefix(k, prefix_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
@@ -130,11 +142,11 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
-                        scale: Optional[float] = None
+                        scale: Optional[float] = None, prefix_len: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backward pass (three kernel launches: delta = dO . O, dQ, and
     dK/dV): ``(dq, dk, dv)`` in the inputs' dtype, dv of V's width."""
-    _check(q, k, v, causal, out=out, dout=dout)
+    _check(q, k, v, causal, prefix_len, out=out, dout=dout)
     b, tq, hq, d = q.shape
     tk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[3]
     if lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
@@ -147,7 +159,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, d,
-        dv_, _scale(d, scale), int(causal),
+        dv_, _scale(d, scale), int(causal), _prefix(k, prefix_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 3     # delta, dQ and dK/dV
@@ -161,22 +173,22 @@ class _FlashAttention(torch.autograd.Function):
     """Forward kernel in ``forward``, backward kernel in ``backward``."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, scale):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+    def forward(ctx, q, k, v, causal, scale, prefix_len):
+        out, lse = flash_attention_fwd(q, k, v, causal, scale, prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.causal, ctx.scale = causal, scale
+        ctx.causal, ctx.scale, ctx.prefix_len = causal, scale, prefix_len
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         ctx.causal, ctx.scale)
-        return dq, dk, dv, None, None
+                                         ctx.causal, ctx.scale, ctx.prefix_len)
+        return dq, dk, dv, None, None, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    causal: bool = True, scale: Optional[float] = None
-                    ) -> torch.Tensor:
+                    causal: bool = True, scale: Optional[float] = None,
+                    prefix_len: int = 0) -> torch.Tensor:
     """Differentiable flash attention through the CUDA kernels."""
-    return _FlashAttention.apply(q, k, v, causal, scale)
+    return _FlashAttention.apply(q, k, v, causal, scale, prefix_len)

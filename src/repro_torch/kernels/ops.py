@@ -18,10 +18,10 @@ autograd), whose own oracles are the sequential ``ref.rwkv6_ref`` and
 ``ref.mamba2_ref``.  Their kernels take an initial state, so both paths
 carry one.
 
-Both paged-attention sides see the same clamped page table.  The flash
-kernel has no prefix-LM mask (neither has the reference's Pallas kernel,
-whose dispatch drops ``prefix_len``): on the kernel path a non-zero
-``prefix_len`` raises.
+Both paged-attention sides see the same clamped page table.  Both flash
+paths apply the prefix-LM mask (``prefix_len``) as the reference's jnp
+``layers.flash_attention`` does; the reference's own Pallas dispatch drops
+it, and the port does not copy that.
 """
 
 from __future__ import annotations
@@ -62,15 +62,13 @@ def flash_attention(q, k, v, causal=True, prefix_len=0, scale=None,
                     use_kernel: Optional[bool] = None):
     """(B, Tq, Hq, D) queries over (B, Tk, Hkv, D) keys and (B, Tk, Hkv,
     Dv) values -> (B, Tq, Hq, Dv); Dv may differ from D on both paths.
+    With ``causal``, the first ``prefix_len`` keys are visible to every
+    row (prefix-LM); without it, ``prefix_len`` changes nothing.
     Differentiable on both paths (the kernel path through the backward
     kernel)."""
-    # refused before the device check, so the refusal is the same anywhere
-    if prefix_len and (use_kernel or (use_kernel is None and q.is_cuda)):
-        raise ValueError(f"prefix_len={prefix_len}: the flash kernel has no "
-                         "prefix-LM mask (nor has the reference's Pallas "
-                         "kernel); only prefix_len=0 runs on the card")
     if _kernel_for(q, use_kernel):
-        return fa.flash_attention(q, k, v, causal=causal, scale=scale)
+        return fa.flash_attention(q, k, v, causal=causal, scale=scale,
+                                  prefix_len=prefix_len)
     return kref.flash_attention(q, k, v, causal=causal, scale=scale,
                                 prefix_len=prefix_len)
 

@@ -11,9 +11,11 @@ backward) for CUDA tensors, its plain version for CPU tensors.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -222,6 +224,18 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
     s = sin[..., :, None, :]
     out = torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
     return torch.cat([out, xp.to(out.dtype)], dim=-1).to(x.dtype)
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoidal_positions(n: int, dim: int) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position table (n, dim), float32 on
+    the host: the reference's numpy arithmetic (float64 angles), so the
+    values are its values.  Cached: callers index it or copy it out."""
+    pos = np.arange(n)[:, None]
+    idx = np.arange(dim // 2)[None, :]
+    ang = pos / np.power(10000.0, 2 * idx / dim)
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=-1).astype(np.float32)
+    return torch.from_numpy(table)
 
 
 # ---------------------------------------------------------------------- #

@@ -1,17 +1,22 @@
-"""Family dispatch: ``get_model(cfg)`` returns a :class:`ModelApi`.
+"""Family dispatch: ``get_model(cfg)`` returns a :class:`ModelApi`, and
+``input_specs`` / ``make_inputs`` the model inputs of a cell.
 
-Counterpart of ``repro/models/registry.py``.  The port has the
-``dense`` (MLA included), ``moe``, ``rwkv`` and ``hybrid`` families;
-``encdec`` and ``vlm`` raise, naming the ROADMAP.md slice that ports
-them.
+Counterpart of ``repro/models/registry.py``, for every family: ``dense``
+(MLA included), ``moe``, ``rwkv``, ``hybrid``, ``encdec`` (whisper) and
+``vlm`` (paligemma).  Input specs are ``(shape, torch dtype)`` pairs where
+the reference has ``ShapeDtypeStruct`` stand-ins.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec
+from repro_torch.models.layers import torch_dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +38,6 @@ class ModelApi:
     cast_params: Optional[Callable] = None
 
 
-_WAITS = {
-    "encdec": "whisper and paligemma",
-    "vlm": "whisper and paligemma",
-}
-
-
 def get_model(cfg: ArchConfig) -> ModelApi:
     if cfg.family == "dense":
         from repro_torch.models import transformer as m
@@ -48,10 +47,10 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         from repro_torch.models import rwkv6 as m
     elif cfg.family == "hybrid":
         from repro_torch.models import mamba2 as m
-    elif cfg.family in _WAITS:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} waits for the "
-            f"'{_WAITS[cfg.family]}' slice of ROADMAP.md")
+    elif cfg.family == "encdec":
+        from repro_torch.models import whisper as m
+    elif cfg.family == "vlm":
+        from repro_torch.models import paligemma as m
     else:
         raise ValueError(cfg.family)
     return ModelApi(
@@ -67,3 +66,55 @@ def get_model(cfg: ArchConfig) -> ModelApi:
         paged_decode_step=getattr(m, "paged_decode_step", None),
         cast_params=getattr(m, "cast_params", None),
     )
+
+
+# ---------------------------------------------------------------------- #
+# input specs
+# ---------------------------------------------------------------------- #
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeSpec
+                ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """Model inputs for one (arch x shape) cell, ``name -> (shape, dtype)``.
+
+    train/prefill: full sequences (tokens+labels / tokens).
+    decode: one new token per sequence (the KV cache is separate state).
+    Modality frontends are stubs: whisper gets frame embeddings,
+    paligemma gets patch embeddings; their text seq_len is reduced by the
+    prefix length so the total positions match the assigned shape.
+    """
+    b, t = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    cd = torch_dtype(cfg.compute_dtype)
+    if shape.kind == "decode":
+        return {"tokens": ((b,), i32)}
+    specs: Dict[str, Tuple[Tuple[int, ...], torch.dtype]] = {}
+    if cfg.family == "encdec":
+        specs["enc_frames"] = ((b, cfg.enc_seq, cfg.d_model), cd)
+        specs["tokens"] = ((b, t), i32)
+    elif cfg.family == "vlm":
+        specs["patches"] = ((b, cfg.n_prefix, cfg.d_model), cd)
+        specs["tokens"] = ((b, t - cfg.n_prefix), i32)
+    else:
+        specs["tokens"] = ((b, t), i32)
+    if shape.kind == "train":
+        specs["labels"] = (specs["tokens"][0], i32)
+    return specs
+
+
+def make_inputs(cfg: ArchConfig, shape: ShapeSpec, gen: torch.Generator,
+                device="cuda") -> Dict[str, torch.Tensor]:
+    """Concrete random inputs matching :func:`input_specs`, drawn from
+    ``gen`` on ``device`` in sorted name order: token ids uniform in
+    ``[0, vocab)``, embeddings standard normal cast to their dtype (the
+    reference's kinds of draw, not its numbers)."""
+    out = {}
+    for name, (dims, dtype) in sorted(input_specs(cfg, shape).items()):
+        if dtype.is_floating_point:
+            x = torch.randn(dims, generator=gen, dtype=torch.float32,
+                            device=device)
+            out[name] = x.to(dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, dims, generator=gen,
+                                      dtype=dtype, device=device)
+    return out

@@ -17,8 +17,10 @@ rope key and attends in latent space (the absorbed-matmul form), with
 plain einsums as the reference does, on both the contiguous and the
 paged path.
 
-Waits for later slices: ``prefix_embeds`` (paligemma) and the
-sequence-parallel forwards, listed in ROADMAP.md.
+``forward(prefix_embeds=...)`` is the prefix-LM (paligemma): the prefix
+rows go in front of the token embeddings, attention sees them from every
+row (``prefix_len`` down to the flash kernel) and their logits are
+dropped.  The sequence-parallel forwards wait for ROADMAP.md item 1.4.
 """
 
 from __future__ import annotations
@@ -266,12 +268,9 @@ def forward(
     prefix_embeds: Optional[torch.Tensor] = None,
     mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Token sequence -> next-token logits.  With ``remat`` each layer's
-    activations are recomputed in the backward pass."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            "prefix_embeds waits for the 'whisper and paligemma' slice of "
-            "ROADMAP.md (item 1.3)")
+    """Token (+ optional prefix embedding) sequence -> next-token
+    logits of the tokens.  With ``remat`` each layer's activations are
+    recomputed in the backward pass."""
     if mesh is not None:
         raise NotImplementedError(
             "the sequence-parallel forwards (_forward_mla_seqpar, "
@@ -279,20 +278,27 @@ def forward(
     tokens = batch["tokens"]
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens, cd)
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(cd), x], dim=1)
     positions = torch.arange(x.shape[1], device=x.device)
     cos, sin = _rope_tables(cfg, positions)
     for li in range(cfg.n_layers):
         lp = L.index_tree(params["layers"], li)
         if remat and torch.is_grad_enabled():
-            x = checkpoint(decoder_layer, lp, x, cfg, cos, sin,
+            x = checkpoint(decoder_layer, lp, x, cfg, cos, sin, prefix_len,
                            use_reentrant=False)
         else:
-            x = decoder_layer(lp, x, cfg, cos, sin)
+            x = decoder_layer(lp, x, cfg, cos, sin, prefix_len)
     x = L.apply_norm(cfg, x, params["ln_f"])
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    return L.lm_logits(x, head, cfg.vocab_size, cd), {}
+    logits = L.lm_logits(x, head, cfg.vocab_size, cd)
+    if prefix_len:
+        logits = logits[:, prefix_len:]
+    return logits, {}
 
 
 # ---------------------------------------------------------------------- #

@@ -1,12 +1,15 @@
 """Shared checks of a port model family against the JAX reference, used by
-``test_torch_rwkv6.py``, ``test_torch_mamba2.py``, ``test_torch_mla.py``
-and ``test_torch_moe.py`` (this module holds no tests of its own).
+``test_torch_rwkv6.py``, ``test_torch_mamba2.py``, ``test_torch_mla.py``,
+``test_torch_moe.py`` and ``test_torch_whisper_paligemma.py`` (this module
+holds no tests of its own).
 
 Weights and the initial train state are made by the reference and carried
 across (``repro_torch.convert``); batches come from the data pipeline
-(numpy, the same in both packages); everything runs at float32 compute
-on the CPU, where the port's scans are their chunked plain versions.
-Each check states its tolerance where it is defined.
+(numpy, the same in both packages), with the stub modality input of the
+``encdec`` and ``vlm`` families added by :class:`ModalPipeline`;
+everything runs at float32 compute on the CPU, where the port's scans are
+their chunked plain versions.  Each check states its tolerance where it is
+defined.
 """
 
 import dataclasses
@@ -73,13 +76,48 @@ def make_pair(arch):
 # (32 tokens), so its state is carried between chunks forward and back;
 # zamba2's stays inside one SSD chunk (64), because the reference's chunked
 # SSD gradient is NaN where a chunk's decays overflow (its forward is
-# finite: ``check_forward`` takes a longer ``seq`` there)
-SEQ = {"rwkv": 40, "hybrid": 24, "dense": 32, "moe": 32}
+# finite: ``check_forward`` takes a longer ``seq`` there); whisper's and
+# paligemma's are text tokens beside their frames or patches
+SEQ = {"rwkv": 40, "hybrid": 24, "dense": 32, "moe": 32, "encdec": 24,
+       "vlm": 24}
+
+
+def modal_input(cfg):
+    """The stub frontend's input of a family: ``(name, rows)`` of its
+    (B, rows, d_model) embeddings, or ``None``."""
+    if cfg.family == "encdec":
+        return "enc_frames", cfg.enc_seq
+    if cfg.family == "vlm":
+        return "patches", cfg.n_prefix
+    return None
+
+
+class ModalPipeline(TokenPipeline):
+    """The token pipeline plus, for ``encdec`` / ``vlm`` configs, the stub
+    frontend's embeddings: standard normal float32 from a Philox stream
+    keyed by (seed + 1, step), so a batch stays a pure function of its
+    step (the trainer's bitwise recovery needs that)."""
+
+    def __init__(self, cfg, global_batch, seq_len, seed=0):
+        super().__init__(cfg.vocab_size, global_batch=global_batch,
+                         seq_len=seq_len, seed=seed)
+        self.modal = modal_input(cfg)
+        self.d_model = cfg.d_model
+
+    def batch_at(self, step):
+        batch = super().batch_at(step)
+        if self.modal is not None:
+            name, rows = self.modal
+            rng = np.random.Generator(np.random.Philox(
+                key=self.seed + 1, counter=np.uint64(step + 1)))
+            batch[name] = rng.standard_normal(
+                (self.global_batch, rows, self.d_model), dtype=np.float32)
+        return batch
 
 
 def batches(cfg, n, batch=4, seq=None):
     seq = SEQ[cfg.family] if seq is None else seq
-    pipe = TokenPipeline(cfg.vocab_size, global_batch=batch, seq_len=seq)
+    pipe = ModalPipeline(cfg, global_batch=batch, seq_len=seq)
     return [pipe.batch_at(i) for i in range(n)]
 
 
@@ -152,7 +190,8 @@ def check_decode(pair, n_tokens=5, max_len=16):
     tparams = params_from_numpy(jstate["params"], tcfg, device="cpu")
     jcache = jmodel.init_cache(jcfg, 2, max_len)
     tcache = tmodel.init_cache(tcfg, 2, max_len, device="cpu")
-    toks = batches(jcfg, 1, batch=2, seq=n_tokens)[0]["tokens"]
+    toks = TokenPipeline(jcfg.vocab_size, global_batch=2,
+                         seq_len=n_tokens).batch_at(0)["tokens"]
     step = jax.jit(jmodel.decode_step, static_argnums=4)
     for i in range(n_tokens):
         jl, jcache = step(jstate["params"], jcache, toks[:, i], jnp.int32(i), jcfg)
@@ -193,7 +232,7 @@ def _run_trainer(root, cfg, failure_schedule):
     scr = SCRManager(cluster, TierStack.for_cluster(cluster),
                      strategy=Strategy.BUDDY, procs_per_node=2,
                      async_drain=True)
-    pipeline = TokenPipeline(cfg.vocab_size, global_batch=4, seq_len=32)
+    pipeline = ModalPipeline(cfg, global_batch=4, seq_len=32)
     with ResilienceSession(scr, policy=IntervalPolicy(4)) as session:
         trainer = Trainer(cfg, get_model(cfg), pipeline, session,
                           opt_cfg=AdamWConfig(lr=1e-3, warmup_steps=4),

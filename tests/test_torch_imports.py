@@ -25,8 +25,8 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     mods = list(port_modules())
     for mod in ("kernels.paged_attention", "kernels.rwkv6_scan",
                 "kernels.mamba2_ssd", "models.rwkv6", "models.mamba2",
-                "models.moe", "serve.kvpage", "serve.prefix",
-                "serve.engine"):
+                "models.moe", "models.whisper", "models.paligemma",
+                "serve.kvpage", "serve.prefix", "serve.engine"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -55,20 +55,18 @@ def test_no_jax_or_reference_import_lines():
 
 
 def test_registry_has_the_recurrent_families_and_names_the_rest():
-    """``rwkv``, ``hybrid`` and ``moe`` resolve to their modules; the
-    families still to port raise, naming their ROADMAP.md slice."""
+    """``rwkv``, ``hybrid``, ``moe``, ``encdec`` and ``vlm`` resolve to
+    their modules, with no JAX and nothing of the reference loaded."""
     code = (
-        "import json\n"
+        "import json, sys\n"
         "from repro_torch.configs import get_config\n"
         "from repro_torch.models.registry import get_model\n"
         "fams = {}\n"
-        "for arch in ('rwkv6-3b', 'zamba2-2.7b', 'qwen2-moe-a2.7b'):\n"
+        "for arch in ('rwkv6-3b', 'zamba2-2.7b', 'qwen2-moe-a2.7b',\n"
+        "             'whisper-tiny', 'paligemma-3b'):\n"
         "    fams[arch] = get_model(get_config(arch)).forward.__module__\n"
-        "for arch in ('whisper-tiny', 'paligemma-3b'):\n"
-        "    try:\n"
-        "        get_model(get_config(arch))\n"
-        "    except NotImplementedError as e:\n"
-        "        fams[arch] = str(e)\n"
+        "fams['loaded'] = sorted(n for n in sys.modules\n"
+        "                        if n.split('.')[0] in ('jax', 'repro'))\n"
         "print(json.dumps(fams))\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -77,6 +75,6 @@ def test_registry_has_the_recurrent_families_and_names_the_rest():
     assert fams["rwkv6-3b"] == "repro_torch.models.rwkv6"
     assert fams["zamba2-2.7b"] == "repro_torch.models.mamba2"
     assert fams["qwen2-moe-a2.7b"] == "repro_torch.models.moe"
-    for arch in ("whisper-tiny", "paligemma-3b"):
-        assert "ROADMAP.md" in fams[arch] and \
-            "whisper and paligemma" in fams[arch], arch
+    assert fams["whisper-tiny"] == "repro_torch.models.whisper"
+    assert fams["paligemma-3b"] == "repro_torch.models.paligemma"
+    assert fams["loaded"] == []

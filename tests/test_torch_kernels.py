@@ -450,6 +450,82 @@ def test_flash_plain_backward_matches_jax_grad(case):
                                    rtol=1e-5)
 
 
+# the prefix-LM mask: (b, tq, tk, hq, hkv, d) and the prefix lengths held;
+# "tk" and "past-tk" stand for Tk and Tk + 5
+PREFIX_SHAPES = [
+    pytest.param((2, 16, 16, 4, 2, 8), id="tq-eq-tk"),
+    pytest.param((1, 10, 16, 4, 1, 8), id="tq-under-tk"),
+]
+PREFIX_LENS = [0, 1, 7, "tk", "past-tk"]
+
+
+def _prefix_len(p, tk):
+    return {"tk": tk, "past-tk": tk + 5}.get(p, p)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("prefix", PREFIX_LENS)
+@pytest.mark.parametrize("shape", PREFIX_SHAPES)
+def test_flash_plain_prefix_lm_matches_jnp_and_jax_grad(shape, prefix, causal):
+    """The plain version (the kernels' plain version) with ``prefix_len``
+    against the reference's jnp ``layers.flash_attention`` -- the model
+    path's prefix-LM mask, never its Pallas dispatch, which drops it --
+    and its gradients against ``jax.grad``; float32 at ``F32_TOL`` for the
+    output and ``atol=rtol=1e-5`` for the gradients (O(1) values summed
+    in different orders).  Without ``causal`` the prefix changes nothing."""
+    import jax
+    from repro.models import layers as jlayers
+
+    q, k, v, dout = flash_inputs(shape + (causal,), seed=21)
+    pl = _prefix_len(prefix, shape[2])
+
+    def jout(q, k, v):
+        return jlayers.flash_attention(q, k, v, causal=causal, prefix_len=pl,
+                                       q_chunk=8, k_chunk=8)
+
+    want = jout(q, k, v)
+    tq_, tk_, tv_ = (t(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq_, tk_, tv_, causal=causal, prefix_len=pl)
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(want), **F32_TOL)
+    if not causal:
+        bare = ops.flash_attention(t(q), t(k), t(v), causal=False)
+        assert torch.equal(out.detach(), bare)
+    got = torch.autograd.grad(out, (tq_, tk_, tv_), t(dout))
+    grads = jax.grad(lambda *a: (jout(*a) * dout).sum(), argnums=(0, 1, 2))(
+        q, k, v)
+    for g, w in zip(got, grads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_flash_plain_prefix_past_tk_is_non_causal():
+    """A prefix that covers every key leaves nothing causal: the same
+    output as the non-causal call."""
+    q, k, v, _ = flash_inputs((1, 10, 16, 4, 1, 8, True), seed=22)
+    full = ops.flash_attention(t(q), t(k), t(v), causal=False)
+    for pl in (16, 21):
+        got = ops.flash_attention(t(q), t(k), t(v), prefix_len=pl)
+        np.testing.assert_allclose(got.numpy(), full.numpy(), **F32_TOL)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_prefix_call_reaches_the_cuda_only_refusal(dtype, which):
+    """A kernel call with a prefix (f32 and bf16 at paligemma's head dim
+    256, 8 query heads over 1, the reduced shape) gets past every check to
+    the device check."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x).to(dtype) for x in flash_inputs(
+        (1, 24, 24, 8, 1, 256, True), seed=23))
+    lse = torch.zeros((1, 8, 24), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        if which == "fwd":
+            tfa.flash_attention_fwd(q, k, v, prefix_len=8)
+        else:
+            tfa.flash_attention_bwd(q, k, v, q, lse, dout, prefix_len=8)
+
+
 @pytest.mark.parametrize("r", [1, 2, 5])
 def test_xor_plain_matches_pallas_exactly(r):
     from repro.kernels.xor_parity import xor_reduce_pallas
@@ -466,8 +542,14 @@ def test_flash_kernel_path_refuses_what_it_has_no_semantics_for():
     from repro_torch.kernels import xor_parity as txp
 
     q, k, v, _ = flash_inputs((1, 16, 16, 2, 2, 8, True), seed=13)
-    with pytest.raises(ValueError, match="prefix"):
+    # the prefix-LM mask is taken on both paths: a kernel-path call with a
+    # prefix gets past every check to the CUDA-only refusal
+    with pytest.raises(ValueError, match="CUDA"):
         ops.flash_attention(t(q), t(k), t(v), prefix_len=4, use_kernel=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(t(q), t(k), t(v), prefix_len=4)
+    with pytest.raises(ValueError, match="prefix_len=-1"):
+        tfa.flash_attention_fwd(t(q), t(k), t(v), prefix_len=-1)
     # the plain version keeps the reference's prefix-LM mask
     plain = ops.flash_attention(t(q), t(k), t(v), prefix_len=4)
     assert torch.isfinite(plain).all()
@@ -499,17 +581,17 @@ def test_flash_kernel_refuses_tq_over_tk_only_when_causal(which):
         call(False)
 
 
-@pytest.mark.parametrize("d", [72, 256])
+@pytest.mark.parametrize("d", [72, 192])
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_flash_bf16_route_refuses_other_head_dims_before_launch(which, d):
     """The bfloat16 (tensor-core) kernels are instantiated for head dims 64,
-    80, 96 and 128; any other is refused with the set named, before the
+    80, 96, 128 and 256; any other is refused with the set named, before the
     device check, so a CPU tensor shows it."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(torch.bfloat16)
                      for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=15))
-    with pytest.raises(ValueError, match=r"head dims \(64, 80, 96, 128\)"):
+    with pytest.raises(ValueError, match=r"head dims \(64, 80, 96, 128, 256\)"):
         if which == "fwd":
             tfa.flash_attention_fwd(q, k, v)
         else:
@@ -517,14 +599,21 @@ def test_flash_bf16_route_refuses_other_head_dims_before_launch(which, d):
             tfa.flash_attention_bwd(q, k, v, q, lse, dout)
 
 
-@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
 def test_flash_bf16_route_takes_its_head_dims_on_cuda_only(d):
+    """Forward and backward calls (with and without a prefix) at every
+    instantiated head dim get past the shape checks to the device check."""
     from repro_torch.kernels import flash_attention as tfa
 
-    q, k, v, _ = (t(x).to(torch.bfloat16)
-                  for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=16))
-    with pytest.raises(ValueError, match="CUDA"):
-        tfa.flash_attention_fwd(q, k, v)
+    q, k, v, dout = (t(x).to(torch.bfloat16)
+                     for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=16))
+    lse = torch.zeros((1, 2, 16), dtype=torch.float32)
+    for prefix_len in (0, 5):
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_fwd(q, k, v, prefix_len=prefix_len)
+        with pytest.raises(ValueError, match="CUDA"):
+            tfa.flash_attention_bwd(q, k, v, q, lse, dout,
+                                    prefix_len=prefix_len)
 
 
 @pytest.mark.parametrize("dtype,d,dv", [(torch.bfloat16, 96, 64),

@@ -42,8 +42,9 @@ VARIANTS = {
                                 "    mbar_wait(v_full(s), ph);\n"
                                 "    if (live && scale_log2 > 1e30f) {")],
     # the forward without P V
-    "fwd scores only": [("      mma_rows<DV>(o0, o1, a, v_s + s * v_stage, "
-                         "kTileBox);\n", "")],
+    "fwd scores only": [("      mma_rows<S::kWV>(o0, o1, a, v_s + s * v_stage + "
+                         "part * (S::kWV / kBox) * kTileBox,\n"
+                         "                       kTileBox);\n", "")],
     # CUDA's exp2f in place of ex2.approx
     "exp2f": [('  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));',
                "  y = exp2f(x);")],
