@@ -38,18 +38,19 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
         "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
         "repro_flash_bf16_smem": [_I, _I, _I],
+        "repro_flash_bf16_dims": [_I, _I],
     },
     "xor_parity": {
         "repro_xor_reduce": [_P, _P, _I, _L, _I, _P],
     },
     "wkv6": {
         "repro_wkv6_fwd": [_I] + [_P] * 9 + [_I] * 4 + [_P],
-        "repro_wkv6_bwd": [_I] + [_P] * 16 + [_I] * 4 + [_P],
+        "repro_wkv6_bwd": [_I] + [_P] * 17 + [_I] * 4 + [_P],
         "repro_wkv6_blocks_per_sm": [_I],
     },
     "mamba2_ssd": {
         "repro_ssd_fwd": [_I] + [_P] * 9 + [_I] * 5 + [_P],
-        "repro_ssd_bwd": [_I] + [_P] * 16 + [_I] * 6 + [_P],
+        "repro_ssd_bwd": [_I] + [_P] * 17 + [_I] * 6 + [_P],
     },
 }
 

@@ -79,7 +79,11 @@
 //   V's and dO's tiles and tensor maps, O's and dV's stores) runs at DV while
 //   Q K^T, dS K and dS^T Q keep D.  (D, DV) = (64, 64), (80, 80), (96, 96),
 //   (128, 128), (256, 256) (PaliGemma's heads) and (96, 64) (MiniCPM3's MLA
-//   heads) are instantiated; others are refused;
+//   heads) are instantiated.  Any other widths (multiples of 8 up to 256)
+//   run at the smallest instantiation that holds them: the tensor maps keep
+//   the true widths, so the boxes read the columns past them as zeros (which
+//   add nothing to Q K^T and give zero output columns), and the stores stop
+//   at them;
 //   - at D 256 a row's accumulators do not fit one thread's registers (dK
 //     and dV together would be 256 f32 values a thread), so the two consumer
 //     warpgroups of a block take the same 64 rows (keys in dK/dV), each
@@ -818,31 +822,38 @@ __device__ __forceinline__ void mma_dots(float (&d)[32], uint32_t a_rows,
 }
 
 // write a warpgroup's 64 x D accumulator rows (scaled) to columns [col0,
-// col0 + D) of a (B, T, H, kWidth) tensor
-template <int D, int kWidth = D>
+// col0 + D) of a (B, T, H, width) tensor, stopping at column `width`: a head
+// narrower than the instantiation (a multiple of 8, so no column pair
+// straddles it) keeps its accumulators' extra columns, which hold zeros
+template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* out, const float (&d0)[32],
                                            const float (&d1)[Dims<D>::kN1 > 0 ? Dims<D>::kN1 / 2 : 1],
                                            const float (&mul)[2], int row0, int t,
                                            int b, int heads, int h, int lane,
-                                           int col0 = 0) {
+                                           int width, int col0 = 0) {
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = row0 + 8 * half;
     if (row >= t) continue;
     __nv_bfloat16* dst =
-        out + ((static_cast<size_t>(b) * t + row) * heads + h) * kWidth + col0;
+        out + ((static_cast<size_t>(b) * t + row) * heads + h) * width + col0;
+    const int cols = width - col0;   // the columns of this warpgroup's share
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int i = 4 * j + 2 * half;
-      *reinterpret_cast<__nv_bfloat162*>(dst + acc_col(i, lane)) =
-          __floats2bfloat162_rn(d0[i] * mul[half], d0[i + 1] * mul[half]);
+      if (acc_col(i, lane) < cols) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + acc_col(i, lane)) =
+            __floats2bfloat162_rn(d0[i] * mul[half], d0[i + 1] * mul[half]);
+      }
     }
     if constexpr (Dims<D>::kN1 > 0) {
 #pragma unroll
       for (int j = 0; j < Dims<D>::kN1 / 8; ++j) {
         const int i = 4 * j + 2 * half;
-        *reinterpret_cast<__nv_bfloat162*>(dst + kBox + acc_col(i, lane)) =
-            __floats2bfloat162_rn(d1[i] * mul[half], d1[i + 1] * mul[half]);
+        if (kBox + acc_col(i, lane) < cols) {
+          *reinterpret_cast<__nv_bfloat162*>(dst + kBox + acc_col(i, lane)) =
+              __floats2bfloat162_rn(d1[i] * mul[half], d1[i + 1] * mul[half]);
+        }
       }
     }
   }
@@ -900,7 +911,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
            const __grid_constant__ CUtensorMap k_map,
            const __grid_constant__ CUtensorMap v_map,
            __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int tq, int tk,
-           int hq, int hkv, float scale_log2, int causal, int prefix_len) {
+           int hq, int hkv, int dv, float scale_log2, int causal, int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
   using S = Split<D, DV>;
@@ -1036,7 +1047,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] = quad_sum(l[r]);
     inv[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
-  store_rows<S::kWV, DV>(o, o0, o1, inv, row0, tq, b, hq, h, lane, part * S::kWV);
+  store_rows<S::kWV>(o, o0, o1, inv, row0, tq, b, hq, h, lane, dv, part * S::kWV);
   if (lane % 4 == 0 && part == 0) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -1108,7 +1119,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
           const __grid_constant__ CUtensorMap v_map,
           const __grid_constant__ CUtensorMap do_map,
           const float* __restrict__ lse, const float* __restrict__ delta,
-          __nv_bfloat16* __restrict__ dq, int tq, int tk, int hq, int hkv,
+          __nv_bfloat16* __restrict__ dq, int tq, int tk, int hq, int hkv, int d,
           float scale, float scale_log2, int causal, int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
@@ -1255,7 +1266,7 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(empty(i % kSt));
   }
   const float mul[2] = {scale, scale};
-  store_rows<S::kW, D>(dq, g0, g1, mul, row0, tq, b, hq, h, lane, part * S::kW);
+  store_rows<S::kW>(dq, g0, g1, mul, row0, tq, b, hq, h, lane, d, part * S::kW);
 }
 
 template <int D, int DV>
@@ -1281,8 +1292,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
             const __grid_constant__ CUtensorMap do_map,
             const float* __restrict__ lse, const float* __restrict__ delta,
             __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq,
-            int tk, int hq, int hkv, float scale, float scale_log2, int causal,
-            int prefix_len) {
+            int tk, int hq, int hkv, int d, int d_v, float scale, float scale_log2,
+            int causal, int prefix_len) {
   using G = Dims<D>;
   using GV = Dims<DV>;
   using S = Split<D, DV>;
@@ -1433,8 +1444,8 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(empty(s));
   }
   const float one[2] = {1.f, 1.f}, mul[2] = {scale, scale};
-  store_rows<S::kWV, DV>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane, part * S::kWV);
-  store_rows<S::kW, D>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane, part * S::kW);
+  store_rows<S::kWV>(dv, dv0, dv1, one, key0, tk, b, hkv, hk, lane, d_v, part * S::kWV);
+  store_rows<S::kW>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane, d, part * S::kW);
 }
 
 }  // namespace hopper
@@ -1591,15 +1602,18 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
 
 int blocks_of(int n, int rows) { return (n + rows - 1) / rows; }
 
+// The tensors are (d, dv) wide, at most the instantiation's (D, DV): the
+// maps keep the true widths, so the boxes read the columns past them as
+// zeros, and the stores stop at them.
 template <int D, int DV>
 int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, int b,
-             int tq, int tk, int hq, int hkv, float scale, int causal, int prefix_len,
-             cudaStream_t stream) {
+             int tq, int tk, int hq, int hkv, int d, int dv, float scale, int causal,
+             int prefix_len, cudaStream_t stream) {
   constexpr int kRows = hopper::Split<D, DV>::kRows;
   CUtensorMap mq, mk, mv;
-  if (!tensor_map(&mq, q, b, tq, hq, D, kRows) ||
-      !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
-      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
+  if (!tensor_map(&mq, q, b, tq, hq, d, kRows) ||
+      !tensor_map(&mk, k, b, tk, hkv, d, hopper::kTile) ||
+      !tensor_map(&mv, v, b, tk, hkv, dv, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = hopper::fwd_kernel<D, DV>;
@@ -1607,7 +1621,7 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, tq, tk, hq, hkv,
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, tq, tk, hq, hkv, dv,
       scale * hopper::kLog2e, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1615,23 +1629,23 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
 template <int D, int DV>
 int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              const void* dout, const float* lse, float* delta, void* dq, void* dk,
-             void* dv, int b, int tq, int tk, int hq, int hkv, float scale, int causal,
-             int prefix_len, cudaStream_t stream) {
+             void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v,
+             float scale, int causal, int prefix_len, cudaStream_t stream) {
   constexpr int kRows = hopper::Split<D, DV>::kRows;
   const long long rows = static_cast<long long>(b) * tq * hq;
   const long long per_block = hopper::kDeltaWarps * hopper::kDeltaRows;
   hopper::delta_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block),
                  hopper::kDeltaWarps * 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(o), static_cast<const __nv_bfloat16*>(dout),
-      delta, rows, tq, hq, DV);
+      delta, rows, tq, hq, d_v);
   int err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   CUtensorMap mq, mk, mv, mdo;
-  if (!tensor_map(&mq, q, b, tq, hq, D, kRows) ||
-      !tensor_map(&mdo, dout, b, tq, hq, DV, kRows) ||
-      !tensor_map(&mk, k, b, tk, hkv, D, hopper::kTile) ||
-      !tensor_map(&mv, v, b, tk, hkv, DV, hopper::kTile)) {
+  if (!tensor_map(&mq, q, b, tq, hq, d, kRows) ||
+      !tensor_map(&mdo, dout, b, tq, hq, d_v, kRows) ||
+      !tensor_map(&mk, k, b, tk, hkv, d, hopper::kTile) ||
+      !tensor_map(&mv, v, b, tk, hkv, d_v, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto dq_k = hopper::dq_kernel<D, DV>;
@@ -1639,16 +1653,16 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   if (err) return err;
   dq_k<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH,
          hopper::dq_smem<D, DV>(), stream>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), tq, tk, hq, hkv,
+      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), tq, tk, hq, hkv, d,
       scale, scale * hopper::kLog2e, causal, prefix_len);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
 
   // the dK/dV kernel holds a block of keys and streams 64-row q and dO tiles
-  if (!tensor_map(&mq, q, b, tq, hq, D, hopper::kTile) ||
-      !tensor_map(&mdo, dout, b, tq, hq, DV, hopper::kTile) ||
-      !tensor_map(&mk, k, b, tk, hkv, D, kRows) ||
-      !tensor_map(&mv, v, b, tk, hkv, DV, kRows)) {
+  if (!tensor_map(&mq, q, b, tq, hq, d, hopper::kTile) ||
+      !tensor_map(&mdo, dout, b, tq, hq, d_v, hopper::kTile) ||
+      !tensor_map(&mk, k, b, tk, hkv, d, kRows) ||
+      !tensor_map(&mv, v, b, tk, hkv, d_v, kRows)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kv_k = hopper::dkdv_kernel<D, DV>;
@@ -1657,39 +1671,44 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   kv_k<<<dim3(hkv, b, blocks_of(tk, kRows)), hopper::kThreadsKV,
          hopper::dkdv_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
-      static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, scale, scale * hopper::kLog2e, causal,
-      prefix_len);
+      static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, d, d_v, scale,
+      scale * hopper::kLog2e, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
 }
 
-// f(D, DV) for the (qk, v) head-dim pairs the bfloat16 route instantiates:
-// the square 64, 80, 96, 128 and 256 (PaliGemma's heads), and (96, 64),
-// MiniCPM3's MLA heads
+// f(D, DV) for the smallest (qk, v) head-dim pair the bfloat16 route
+// instantiates that holds (d, dv) (by D + DV, then D): the square 64, 80, 96,
+// 128 and 256 (PaliGemma's heads), and (96, 64), MiniCPM3's MLA heads
 template <typename F>
 int with_head_dims(int d, int dv, F&& f) {
   using std::integral_constant;
-  if (d == dv) {
-    switch (d) {
-      case 64: return f(integral_constant<int, 64>{}, integral_constant<int, 64>{});
-      case 80: return f(integral_constant<int, 80>{}, integral_constant<int, 80>{});
-      case 96: return f(integral_constant<int, 96>{}, integral_constant<int, 96>{});
-      case 128: return f(integral_constant<int, 128>{}, integral_constant<int, 128>{});
-      case 256: return f(integral_constant<int, 256>{}, integral_constant<int, 256>{});
-      default: return static_cast<int>(cudaErrorInvalidValue);
-    }
+  if (d <= 64 && dv <= 64) {
+    return f(integral_constant<int, 64>{}, integral_constant<int, 64>{});
   }
-  if (d == 96 && dv == 64) {
+  if (d <= 80 && dv <= 80) {
+    return f(integral_constant<int, 80>{}, integral_constant<int, 80>{});
+  }
+  if (d <= 96 && dv <= 64) {
     return f(integral_constant<int, 96>{}, integral_constant<int, 64>{});
+  }
+  if (d <= 96 && dv <= 96) {
+    return f(integral_constant<int, 96>{}, integral_constant<int, 96>{});
+  }
+  if (d <= 128 && dv <= 128) {
+    return f(integral_constant<int, 128>{}, integral_constant<int, 128>{});
+  }
+  if (d <= 256 && dv <= 256) {
+    return f(integral_constant<int, 256>{}, integral_constant<int, 256>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32 (CUDA-core route, any d and dv that are multiples
-// of 8 up to 256), 1 = bfloat16 (tensor-core route, the (d, dv) pairs of
-// with_head_dims); q, k, v, o and the gradients share it, lse and delta are
-// f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
+// dtype codes: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core
+// route, at the instantiation with_head_dims picks); both take any d and dv
+// that are multiples of 8 up to 256.  q, k, v, o and the gradients share the
+// dtype, lse and delta are f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
 // v, dv (B, Tk, Hkv, dv), o, dO (B, Tq, Hq, dv); the bfloat16 route's are
 // 16-byte aligned.  prefix_len >= 0: with causal, the first prefix_len keys
 // are visible to every row (prefix-LM); without, it changes nothing.
@@ -1706,7 +1725,7 @@ extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
   if (dtype == 1) {
     return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
       return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, l, b, tq, tk, hq, hkv, scale, causal, prefix_len, s);
+          q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len, s);
     });
   }
   // the forward's accumulators are the output's dv columns
@@ -1732,8 +1751,8 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
   if (dtype == 1) {
     return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
       return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, scale, causal,
-          prefix_len, s);
+          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d, d_v, scale,
+          causal, prefix_len, s);
     });
   }
   // dQ's accumulators are d wide, dK's d and dV's d_v: one count for both
@@ -1742,6 +1761,19 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
                                            tk, hq, hkv, d, d_v, scale, causal, prefix_len,
                                            s);
   });
+}
+
+// The head dims (D, DV) the bfloat16 route runs a (d, dv) call at, the
+// instantiation with_head_dims picks, as D * 65536 + DV; -1 for a pair the
+// route does not take.  d and dv are the widths the wrapper passes (multiples
+// of 8).
+extern "C" int repro_flash_bf16_dims(int d, int dv) {
+  int dims = -1;
+  with_head_dims(d, dv, [&](auto dim, auto dim_v) {
+    dims = decltype(dim)::value * 65536 + decltype(dim_v)::value;
+    return 0;
+  });
+  return dims;
 }
 
 // Dynamic shared memory of the bfloat16 route's kernels at head dims (d, dv)

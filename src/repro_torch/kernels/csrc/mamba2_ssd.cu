@@ -642,7 +642,9 @@ __global__ void __launch_bounds__(kThreads, sizeof(T) == 2 ? 3 : 1)
 ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const T* __restrict__ Bm,
                const T* __restrict__ Cm, const float* __restrict__ ckpt,
-               const T* __restrict__ dy, T* __restrict__ dx,
+               const T* __restrict__ dy,
+               const float* __restrict__ dstate,   // (B, H, P, N) or null: zero
+               T* __restrict__ dx,
                float* __restrict__ ddt,        // (B, T, H)
                double* __restrict__ dA_part,   // (B, H)
                float* __restrict__ dB_part,    // (B, T, H / group, N)
@@ -692,7 +694,8 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   };
 
   float dS[8][4];   // the gradient on the chunk's end state: rows p, cols n
-  zero(dS);
+  // the last chunk's end state is the final state: its gradient is dstate
+  read_acc(dS, dstate != nullptr ? dstate + bh * pn : nullptr, p, n, m0, lane);
   double dA_acc = 0.0;
   // chunk c's da (f64 warp scans over its tokens), ddt and its part of dA;
   // run by the last warp at the start of chunk c - 1 (beside warp 0's
@@ -993,7 +996,8 @@ int fwd(const void* x, const float* dt, const float* A, const void* Bm, const vo
 
 template <typename T>
 int bwd(const void* x, const float* dt, const float* A, const void* Bm, const void* Cm,
-        const float* ckpt, const void* dy, void* dx, float* ddt, double* dA_part,
+        const float* ckpt, const void* dy, const float* dstate, void* dx, float* ddt,
+        double* dA_part,
         float* dB_part, float* dC_part, float* ds0, void* dB, void* dC, float* dA, int b,
         int t, int h, int p, int n, int group, cudaStream_t stream) {
   auto kernel = ssd_bwd_kernel<T>;
@@ -1017,7 +1021,8 @@ int bwd(const void* x, const float* dt, const float* A, const void* Bm, const vo
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const T*>(x), dt, A,
                            static_cast<const T*>(Bm), static_cast<const T*>(Cm), ckpt,
-                           static_cast<const T*>(dy), static_cast<T*>(dx), ddt, dA_part,
+                           static_cast<const T*>(dy), dstate, static_cast<T*>(dx), ddt,
+                           dA_part,
                            dB_part, dC_part, ds0, t, h, p, n, group, vec_x, vec_bc);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int bt = b * t, total = bt * n > h ? bt * n : h;
@@ -1034,8 +1039,9 @@ int bwd(const void* x, const float* dt, const float* A, const void* Bm, const vo
 // per-(b, h) parts float64).  Tensors are contiguous: x, y (B, T, H, P), dt
 // (B, T, H), A (H), B, C (B, T, N), states (B, H, P, N) (s0 may be null: a
 // zero state), the saved chunk-start states (B, H, ceil(T / 64), P, N) --
-// null to save none.  ``group`` heads (a divisor of H, at most 8) share a
-// cluster; dB_part and dC_part are (B, T, H / group, N).
+// null to save none; the backward's dstate, the gradient on the final state
+// (B, H, P, N), may be null: a zero one.  ``group`` heads (a divisor of H,
+// at most 8) share a cluster; dB_part and dC_part are (B, T, H / group, N).
 extern "C" int repro_ssd_fwd(int dtype, const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* s0, void* y,
                              void* s_out, void* ckpt, int b, int t, int h, int p, int n,
@@ -1055,7 +1061,8 @@ extern "C" int repro_ssd_fwd(int dtype, const void* x, const void* dt, const voi
 
 extern "C" int repro_ssd_bwd(int dtype, const void* x, const void* dt, const void* A,
                              const void* Bm, const void* Cm, const void* ckpt,
-                             const void* dy, void* dx, void* ddt, void* dA_part,
+                             const void* dy, const void* dstate, void* dx, void* ddt,
+                             void* dA_part,
                              void* dB_part, void* dC_part, void* ds0, void* dB, void* dC,
                              void* dA, int b, int t, int h, int p, int n, int group,
                              void* stream) {
@@ -1073,9 +1080,10 @@ extern "C" int repro_ssd_bwd(int dtype, const void* x, const void* dt, const voi
   float* dcp = static_cast<float*>(dC_part);
   float* ds = static_cast<float*>(ds0);
   float* da = static_cast<float*>(dA);
+  const float* dsf = static_cast<const float*>(dstate);
   return dtype == 0
-             ? bwd<float>(x, dtf, af, Bm, Cm, ck, dy, dx, ddtf, dap, dbp, dcp, ds, dB, dC,
-                          da, b, t, h, p, n, group, s)
-             : bwd<bf16>(x, dtf, af, Bm, Cm, ck, dy, dx, ddtf, dap, dbp, dcp, ds, dB, dC,
-                         da, b, t, h, p, n, group, s);
+             ? bwd<float>(x, dtf, af, Bm, Cm, ck, dy, dsf, dx, ddtf, dap, dbp, dcp, ds, dB,
+                          dC, da, b, t, h, p, n, group, s)
+             : bwd<bf16>(x, dtf, af, Bm, Cm, ck, dy, dsf, dx, ddtf, dap, dbp, dcp, ds, dB,
+                         dC, da, b, t, h, p, n, group, s);
 }

@@ -1022,15 +1022,17 @@ wkv6_bwd_state_part_kernel(const T* __restrict__ r, const float* __restrict__ w,
 }
 
 // G_c at every chunk's end, in place of dG_c: one thread per state element
-// (b, h, i, e) walking the chunks in reverse; the last G to ds0
+// (b, h, i, e) walking the chunks in reverse from the final state's gradient
+// (dstate; null is zero); the last G to ds0
 __global__ void wkv6_bwd_state_scan(float* __restrict__ g, const float* __restrict__ eltot,
+                                    const float* __restrict__ dstate,
                                     float* __restrict__ ds0, int nc, int d, size_t elems) {
   const size_t idx = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   wait_prior_grid();
   if (idx >= elems) return;
   const size_t dd = static_cast<size_t>(d) * d;
   const size_t bh = idx / dd, ie = idx % dd, i = ie / d;
-  float acc = 0.f;
+  float acc = dstate != nullptr ? dstate[idx] : 0.f;
   // eight chunks' parts and decays read at once, then the chain through them
   for (int c1 = nc - 1; c1 >= 0; c1 -= 8) {
     float part[8], el[8];
@@ -1469,9 +1471,9 @@ int fwd(const void* r, const void* k, const void* v, const float* w, const float
 // at once
 template <typename T>
 int bwd(const void* r, const void* k, const void* v, const float* w, const float* u,
-        const float* ckpt, const void* dy, void* dr, void* dk, void* dv, float* dw,
-        float* du_part, float* du, float* ds0, float* gsave, float* eltot, int b, int t,
-        int h, int d, cudaStream_t stream) {
+        const float* ckpt, const void* dy, const float* dstate, void* dr, void* dk, void* dv,
+        float* dw, float* du_part, float* du, float* ds0, float* gsave, float* eltot, int b,
+        int t, int h, int d, cudaStream_t stream) {
   const int vec = sizeof(T) == 2 && d % 8 == 0 && aligned16(r) && aligned16(k) &&
                   aligned16(v) && aligned16(dy);
   const int nc = (t + kChunk - 1) / kChunk;
@@ -1499,7 +1501,7 @@ int bwd(const void* r, const void* k, const void* v, const float* w, const float
   cfg.blockDim = dim3(256);
   cfg.dynamicSmemBytes = 0;
   err = cudaLaunchKernelEx(&cfg, wkv6_bwd_state_scan, gsave, static_cast<const float*>(eltot),
-                           ds0, nc, d, elems);
+                           dstate, ds0, nc, d, elems);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto chunk = wkv6_bwd_chunk_kernel<T>;
   const int smem2 = static_cast<int>(sizeof(BwdChunkSmem<T>));
@@ -1540,7 +1542,8 @@ int resident(K kernel, int threads, int smem) {
 // dv); w, u, the states, dw and du's per-(b, h) parts are float32.
 // Tensors are contiguous: r, k, v, w, y (B, T, H, D), u (H, D), states (B, H,
 // D, D) (s0 may be null: a zero state), the saved chunk-start states (B, H,
-// ceil(T / 64), D, D) -- null to save none.
+// ceil(T / 64), D, D) -- null to save none; the backward's dstate, the
+// gradient on the final state (B, H, D, D), may be null: a zero one.
 extern "C" int repro_wkv6_fwd(int dtype, const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* s0, void* y,
                               void* s_out, void* ckpt, int b, int t, int h, int d,
@@ -1560,9 +1563,10 @@ extern "C" int repro_wkv6_fwd(int dtype, const void* r, const void* k, const voi
 
 extern "C" int repro_wkv6_bwd(int dtype, const void* r, const void* k, const void* v,
                               const void* w, const void* u, const void* ckpt,
-                              const void* dy, void* dr, void* dk, void* dv, void* dw,
-                              void* du_part, void* du, void* ds0, void* gsave, void* eltot,
-                              int b, int t, int h, int d, void* stream) {
+                              const void* dy, const void* dstate, void* dr, void* dk,
+                              void* dv, void* dw, void* du_part, void* du, void* ds0,
+                              void* gsave, void* eltot, int b, int t, int h, int d,
+                              void* stream) {
   if (bad_shape(b, t, h, d) || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1576,10 +1580,11 @@ extern "C" int repro_wkv6_bwd(int dtype, const void* r, const void* k, const voi
   float* ds = static_cast<float*>(ds0);
   float* gs = static_cast<float*>(gsave);
   float* el = static_cast<float*>(eltot);
-  return dtype == 0 ? bwd<float>(r, k, v, wf, uf, ck, dy, dr, dk, dv, dwf, dup, duf, ds, gs, el,
-                                 b, t, h, d, s)
-                    : bwd<bf16>(r, k, v, wf, uf, ck, dy, dr, dk, dv, dwf, dup, duf, ds, gs, el,
-                                b, t, h, d, s);
+  const float* dsf = static_cast<const float*>(dstate);
+  return dtype == 0 ? bwd<float>(r, k, v, wf, uf, ck, dy, dsf, dr, dk, dv, dwf, dup, duf, ds,
+                                 gs, el, b, t, h, d, s)
+                    : bwd<bf16>(r, k, v, wf, uf, ck, dy, dsf, dr, dk, dv, dwf, dup, duf, ds,
+                                gs, el, b, t, h, d, s);
 }
 
 // blocks per SM of the bf16 kernels: the forward (kernel 0), the

@@ -18,6 +18,18 @@ Both routes take the reference model's prefix-LM mask (``prefix_len``:
 with ``causal``, the first ``prefix_len`` keys are visible to every
 row), which the reference's Pallas dispatch drops.
 
+Both routes take every head width up to 256: a width that is not a
+multiple of 8 (TMA wants 16-byte rows) is zero-padded to the next one by
+the wrapper on both routes (:func:`padded_dims`) and the result sliced
+back; the bfloat16 route runs a pair it has no instantiation for at the
+smallest one that holds it (``with_head_dims`` in the CUDA source picks
+it; :func:`bf16_kernel_dims` asks), its tensor maps at the true widths
+(the boxes read the columns past them as zeros) and its stores stopping
+at them.
+Zero columns change neither Q K^T nor the kept columns of P V, and the
+softmax scale stays the true width's.  Above 256 is refused: Q K^T
+contracts over D, and no configuration reaches it.
+
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
 :func:`flash_attention_bwd` launch the kernels and count their launches
@@ -31,6 +43,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import _build
 
@@ -40,8 +53,40 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # MLA heads); float32 takes any D and Dv that are multiples of 8 up to 256
 BF16_HEAD_DIMS = (64, 80, 96, 128, 256)
 BF16_PAIRS = tuple((d, d) for d in BF16_HEAD_DIMS) + ((96, 64),)
+MAX_HEAD_DIM = 256
 
-__all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd"]
+__all__ = ["bf16_kernel_dims", "flash_attention", "flash_attention_fwd",
+           "flash_attention_bwd", "padded_dims"]
+
+
+def padded_dims(d: int, dv: int) -> Tuple[int, int]:
+    """The head dims (D, Dv) the wrappers hand the kernels for a (d, dv)
+    call: each rounded up to a multiple of 8 (the float32 route runs at
+    these)."""
+    return -(-d // 8) * 8, -(-dv // 8) * 8
+
+
+def bf16_kernel_dims(d: int, dv: int) -> Tuple[int, int]:
+    """The instantiation (D, Dv) the bfloat16 route runs a (d, dv) call
+    at, as the CUDA source picks it (the smallest pair of
+    :data:`BF16_PAIRS` that holds both, by D + Dv, then D).  Loads the
+    built library, so it runs where the kernels do."""
+    dims = _build.library("flash_attention").repro_flash_bf16_dims(
+        *padded_dims(d, dv))
+    if dims < 0:
+        raise ValueError(f"the bfloat16 route takes no ({d}, {dv}) call")
+    return dims // 65536, dims % 65536
+
+
+def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` with its last axis zero-padded to ``width`` (as it is when
+    it already has that width): a width that is not a multiple of 8 goes
+    to the next one."""
+    return t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+
+
+def _unpad(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else t[..., :width].contiguous()
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,13 +111,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     for name, width in (("head dim", d), ("v head dim", dv)):
-        if width % 8 or width > 256:
-            raise ValueError(f"{name} {width} must be a multiple of 8 and <= 256")
-    if q.dtype == torch.bfloat16 and (d, dv) not in BF16_PAIRS:
-        raise ValueError(
-            f"head dims (D, Dv) = ({d}, {dv}): the bfloat16 kernels take head "
-            f"dims {BF16_HEAD_DIMS} with Dv = D, and the pairs "
-            f"{tuple(p for p in BF16_PAIRS if p[0] != p[1])}")
+        if width < 1 or width > MAX_HEAD_DIM:
+            raise ValueError(
+                f"{name} {width} must be in [1, {MAX_HEAD_DIM}]: the kernels "
+                f"contract Q K^T over at most {MAX_HEAD_DIM} columns, and no "
+                "configuration needs more")
     if tq < 1 or tk < 1:
         raise ValueError(f"Tq={tq} and Tk={tk} must be >= 1")
     if causal and tq > tk:
@@ -125,17 +168,19 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, causal, prefix_len)
     b, tq, hq, d = q.shape
     tk, hkv, dv = k.shape[1], k.shape[2], v.shape[3]
-    out = torch.empty((b, tq, hq, dv), dtype=q.dtype, device=q.device)
+    kd, kdv = padded_dims(d, dv)
+    q, k, v = _pad(q, kd), _pad(k, kd), _pad(v, kdv)
+    out = torch.empty((b, tq, hq, kdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
     lib = _build.library("flash_attention")
     err = lib.repro_flash_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, d, dv,
+        out.data_ptr(), lse.data_ptr(), b, tq, tk, hq, hkv, kd, kdv,
         _scale(d, scale), int(causal), _prefix(k, prefix_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _unpad(out, dv), lse
 
 
 flash_attention_fwd.launches = 0
@@ -152,18 +197,21 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     if lse.shape != (b, hq, tq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous():
         raise ValueError(f"lse must be contiguous float32 {(b, hq, tq)}")
+    kd, kdv = padded_dims(d, dv_)
+    q, k, v = _pad(q, kd), _pad(k, kd), _pad(v, kdv)
+    out, dout = _pad(out, kdv), _pad(dout, kdv)
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_attention")
     err = lib.repro_flash_bwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, d,
-        dv_, _scale(d, scale), int(causal), _prefix(k, prefix_len),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, kd,
+        kdv, _scale(d, scale), int(causal), _prefix(k, prefix_len),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 3     # delta, dQ and dK/dV
-    return dq, dk, dv
+    return _unpad(dq, d), _unpad(dk, d), _unpad(dv, dv_)
 
 
 flash_attention_bwd.launches = 0

@@ -393,13 +393,15 @@ def mamba2_ssd_chunked(
 def mamba2_ssd_chunked_grads(
     x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
     Cm: torch.Tensor, starts: torch.Tensor, dy: torch.Tensor, chunk: int = 64,
+    dstate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The SSD backward kernel's arithmetic, written plainly, from the
-    chunk-start states of :func:`mamba2_ssd_chunked` and dy (no gradient
-    on the final state): ``(dx, ddt, dA, dB, dC, dstate)``, all in f32.
+    chunk-start states of :func:`mamba2_ssd_chunked`, dy and the gradient
+    on the final state ``dstate`` (None: zero): ``(dx, ddt, dA, dB, dC,
+    dstate0)``, all in f32.
 
     The chunks run in reverse with dS1, the gradient on the chunk's end
-    state (0 after the last).  With dM_ij = dt_j (dy_i . x_j) [j <= i] and
+    state (``dstate`` after the last).  With dM_ij = dt_j (dy_i . x_j) [j <= i] and
     Z = dM * M (off its diagonal, where the two sums below cancel)::
 
         du_j  = sum_i M_ij dy_i + w_j dS1 B_j            dx = dt du
@@ -420,7 +422,8 @@ def mamba2_ssd_chunked_grads(
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                  device=x.device))
     off = mask & ~torch.eye(chunk, dtype=torch.bool, device=x.device)
-    dS = torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+    dS = (torch.zeros((b, h, p, n), dtype=acc, device=x.device)
+          if dstate is None else dstate.to(acc))
     dA = torch.zeros((h,), dtype=acc, device=x.device)
     dxs, ddts, dBs, dCs = [], [], [], []
     for c in reversed(range(nc)):
@@ -593,14 +596,15 @@ def wkv6_chunked_form(
 def wkv6_chunked_form_grads(
     r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     u: torch.Tensor, starts: torch.Tensor, dy: torch.Tensor, chunk: int = 64,
-    sub: int = 16,
+    sub: int = 16, dstate: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, ...]:
     """The WKV6 backward kernel's arithmetic, written plainly, from the
-    chunk-start states of :func:`wkv6_chunked_form` and dy (no gradient on
-    the final state): ``(dr, dk, dv, dw, du, dstate)``, all in f32.
+    chunk-start states of :func:`wkv6_chunked_form`, dy and the gradient on
+    the final state ``dstate`` (None: zero): ``(dr, dk, dv, dw, du,
+    dstate0)``, all in f32.
 
     The chunks run in reverse with G, the gradient on the chunk's end state
-    (0 after the last).  With dA_ij = dy_i . v_j below the diagonal and
+    (``dstate`` after the last).  With dA_ij = dy_i . v_j below the diagonal and
     dbeta_i = dy_i . v_i::
 
         dv   = A^T dy + (k e^{Ltot - L}) G
@@ -625,7 +629,8 @@ def wkv6_chunked_form_grads(
     ns = chunk // sub
     lower = torch.tril(torch.ones((chunk, chunk), dtype=acc, device=r.device),
                        -1)
-    G = torch.zeros((b, h, d, d), dtype=acc, device=r.device)
+    G = (torch.zeros((b, h, d, d), dtype=acc, device=r.device)
+         if dstate is None else dstate.to(acc))
     du = torch.zeros((h, d), dtype=acc, device=r.device)
     drs, dks, dvs, dws = [], [], [], []
     for c in reversed(range(nc)):

@@ -1,5 +1,5 @@
-"""Memory layer: tiers, the BufferStore protocol, codecs and the tier
-stack.  ``memory/shared.py`` waits for the fleet slice of ROADMAP.md."""
+"""Memory layer: tiers, the BufferStore protocol, codecs, the tier stack
+and the fleet's cross-process shared tier (``memory/shared.py``)."""
 
 from repro_torch.memory.tiers import (
     TierKind,

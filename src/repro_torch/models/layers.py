@@ -263,6 +263,11 @@ def flash_attention(
                                scale=scale)
 
 
+# calls of the plain functions a kernel path must avoid, for the checks that
+# it does (a dict, so that a wrapper put in a function's place counts too)
+plain_calls = {"decode_attention": 0}
+
+
 def decode_attention(
     q: torch.Tensor,        # (B, Hq, D) one new token per sequence
     k_cache: torch.Tensor,  # (B, S, Hkv, D)
@@ -270,6 +275,7 @@ def decode_attention(
     length: torch.Tensor,   # (B,) valid cache lengths (including current token)
     scale: Optional[float] = None,
 ) -> torch.Tensor:
+    plain_calls["decode_attention"] += 1
     b, s, hkv, d = k_cache.shape
     hq = q.shape[1]
     g = hq // hkv

@@ -1,20 +1,21 @@
-"""The serving construction API: one config, one local entry point.
+"""The serving construction API: one config, two entry points.
 
 Counterpart of ``repro/serve/api.py``.  :func:`Serve.local` builds one
 in-process serving stack from a :class:`ServeConfig`: the model from the
 config registry (``reduced()`` unless ``full_size``, random weights from
 ``seed``) on ``device``, the KV pager, the prefix cache, and the paged or
 contiguous scheduler, with an optional session for save and restore.
-``Serve.fleet`` and :meth:`ServeConfig.worker_spec` wait for the fleet.
+:func:`Serve.fleet` spawns N workers, each built from the same config
+(:meth:`ServeConfig.worker_spec`), behind a
+:class:`~repro_torch.serve.fleet.frontend.FleetFrontend`.
 """
 
 from __future__ import annotations
 
 import math
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Sequence, Tuple
-
-_FLEET_WAITS = "waits for the fleet, ROADMAP.md item 1.4"
 
 
 @dataclass(frozen=True)
@@ -27,8 +28,13 @@ class ServeConfig:
     path; ``spec_k`` > 0 adds speculative multi-token verification
     (implies paged); ``kv_codec`` is the KV representation policy.
     ``fast_bytes`` sizes the pager's fast tier (``None``: ``slots + 1``
-    lanes); ``prefix`` enables the shared-prefix radix cache.  The fleet
-    fields are carried for the fleet."""
+    lanes); ``prefix`` enables the shared-prefix radix cache.
+
+    Fleet side (ignored by :func:`Serve.local`): ``shared_capacity``
+    bounds the cross-process domain, ``ckpt_every`` > 0 enables each
+    worker's periodic epoch checkpoint, ``hb_interval_s`` /
+    ``hb_timeout_s`` pace the failure detector, and ``adopt_batch`` > 0
+    throttles per-admission board adoption."""
 
     arch: str = "phi3-mini-3.8b"
     seed: int = 0
@@ -56,8 +62,21 @@ class ServeConfig:
     device: str = "cuda"
 
     def worker_spec(self, shared_root: str, name: str = "") -> Any:
-        """The per-worker spawn spec this config denotes."""
-        raise NotImplementedError(f"ServeConfig.worker_spec {_FLEET_WAITS}")
+        """The per-worker spawn spec this config denotes (the reference's
+        fields, plus ``device`` and ``full_size``)."""
+        from repro_torch.serve.fleet.worker import WorkerSpec
+
+        return WorkerSpec(
+            shared_root=str(shared_root), arch=self.arch, slots=self.slots,
+            max_len=self.max_len, page_tokens=self.page_tokens,
+            quantum=self.quantum, pool_pages=self.pool_pages,
+            spec_k=self.spec_k,
+            fast_bytes=self.fast_bytes or 8 << 20,
+            page_bytes=self.page_bytes, kv_codec=self.kv_codec,
+            shared_capacity=self.shared_capacity, seed=self.seed,
+            name=name, ckpt_every=self.ckpt_every,
+            hb_interval_s=self.hb_interval_s, adopt_batch=self.adopt_batch,
+            device=self.device, full_size=self.full_size)
 
 
 def _build_model(cfg: ServeConfig) -> Tuple[Any, Any, Any]:
@@ -166,14 +185,47 @@ class Serve:
         return LocalServe(cfg, session=session)
 
     @staticmethod
-    def fleet(cfg: ServeConfig, workers: int = 2, **kw) -> Any:
-        """N spawned workers over one shared cache domain."""
-        raise NotImplementedError(f"Serve.fleet {_FLEET_WAITS}")
+    def fleet(cfg: ServeConfig, workers: int = 2,
+              shared_root: Optional[str] = None,
+              quotas: Optional[Dict[str, Any]] = None,
+              classes: Optional[Dict[str, Any]] = None,
+              ready_timeout: float = 600.0, **frontend_kw) -> Any:
+        """N spawned workers over one shared cache domain behind a
+        :class:`~repro_torch.serve.fleet.frontend.FleetFrontend`.  The
+        frontend's failure detector inherits ``cfg.hb_timeout_s``;
+        workers inherit the epoch-checkpoint cadence, so a fleet built
+        here is elastic out of the box when ``cfg.ckpt_every`` > 0.
+        ``shared_root`` defaults to a fresh temp dir (use an explicit
+        path to join an existing domain).  On a card, build the kernels
+        first (``kernels._build.build_all``) so that the workers load them
+        instead of each running ``nvcc``."""
+        if workers < 1:
+            raise ValueError("need at least one worker")
+        if shared_root is None:
+            shared_root = tempfile.mkdtemp(prefix="deeper_fleet_")
+        from repro_torch.serve.fleet.frontend import FleetFrontend
+
+        specs = [cfg.worker_spec(shared_root, name=f"w{i}")
+                 for i in range(workers)]
+        kw = dict(frontend_kw)
+        kw.setdefault("hb_timeout_s", cfg.hb_timeout_s)
+        if quotas is not None:
+            kw["quotas"] = quotas
+        if classes is not None:
+            kw["classes"] = classes
+        return FleetFrontend.launch(specs, ready_timeout=ready_timeout, **kw)
 
     @staticmethod
     def stats(handle: Any) -> Dict[str, Any]:
-        """The unified observability view over a local handle: its one
-        registry is its own merge."""
+        """The unified observability view over either entry point's
+        handle: ``{"merged": <registry snapshot>, "frontend"/"local":
+        <snapshot>, "workers": {name: <snapshot>}}``.  For a fleet this
+        is :meth:`FleetFrontend.fleet_stats` (worker snapshots merged
+        sketch-wise); for a local stack the single registry is its own
+        merge."""
+        fleet_stats = getattr(handle, "fleet_stats", None)
+        if callable(fleet_stats):
+            return fleet_stats()
         snap = handle.scheduler.registry.snapshot()
         return {"merged": snap, "local": snap, "workers": {}}
 

@@ -151,12 +151,42 @@ class KVPager:
         return cls(stack, page_bytes=page_bytes, own_stack=True)
 
     @classmethod
-    def for_fleet(cls, shared, fast_bytes: int, **kw) -> "KVPager":
-        """A fleet worker's serving KV stack over a cross-process shared
-        tier (``memory/shared.py``), which the fleet slice ports."""
-        raise NotImplementedError(
-            "KVPager.for_fleet needs memory/shared.py, which waits for "
-            "ROADMAP.md item 1.4 (the fleet)")
+    def for_fleet(
+        cls,
+        shared,
+        fast_bytes: int,
+        admission_fraction: Optional[float] = 0.5,
+        promotion: Optional[HitRatePromotion] = None,
+        page_bytes: int = KV_PAGE_BYTES,
+        kv_codec: Optional[str] = None,
+        codec_dtype: str = "float32",
+        codec_block: int = 128,
+        registry=None,
+    ) -> "KVPager":
+        """A fleet worker's serving KV stack: a process-private fast tier
+        over a cross-process :class:`~repro_torch.memory.shared.SharedTier`
+        cache domain (``hbm > shared``).  Cold pages demote into the
+        shared domain, published prefix pages land there directly
+        (``TierStack.put_at``), and a read that misses the fast tier
+        falls through to the domain — finding pages written by *any*
+        worker — and read-through-promotes them locally.  Every worker of
+        a fleet passes the *same* domain (or a ``SharedTier`` over the
+        same root)."""
+        levels: List[Tuple[str, Any]] = [
+            ("hbm", MemoryTier(TierSpec(TierKind.HBM, fast_bytes,
+                                        450e9, 450e9, 1e-7))),
+            ("shared", shared),
+        ]
+        codec = make_codec(kv_codec, dtype=codec_dtype, block=codec_block)
+        stack = TierStack(
+            levels,
+            admission_fraction=admission_fraction,
+            promotion=promotion if promotion is not None
+            else HitRatePromotion(k=2, window=256),
+            codecs={KeyClass.KV: CodecRule(codec)} if codec else None,
+            registry=registry,
+        )
+        return cls(stack, page_bytes=page_bytes, own_stack=True)
 
     # -- paging ----------------------------------------------------------- #
 

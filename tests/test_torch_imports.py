@@ -26,7 +26,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
     for mod in ("kernels.paged_attention", "kernels.rwkv6_scan",
                 "kernels.mamba2_ssd", "models.rwkv6", "models.mamba2",
                 "models.moe", "models.whisper", "models.paligemma",
-                "serve.kvpage", "serve.prefix", "serve.engine"):
+                "serve.kvpage", "serve.prefix", "serve.engine",
+                "memory.shared", "obs.recorder", "serve.fleet",
+                "serve.fleet.board", "serve.fleet.worker",
+                "serve.fleet.frontend"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

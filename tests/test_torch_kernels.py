@@ -585,13 +585,17 @@ def test_flash_kernel_refuses_tq_over_tk_only_when_causal(which):
 @pytest.mark.parametrize("which", ["fwd", "bwd"])
 def test_flash_bf16_route_refuses_other_head_dims_before_launch(which, d):
     """The bfloat16 (tensor-core) kernels are instantiated for head dims 64,
-    80, 96, 128 and 256; any other is refused with the set named, before the
-    device check, so a CPU tensor shows it."""
+    80, 96, 128 and 256; any other width runs at the next one (72 at 80,
+    192 at 256: the CUDA source picks it, which the card-only
+    ``test_cuda_flash_bf16_runs_a_pair_at_the_smallest_instantiation``
+    holds), so the call gets past every shape check to the device check
+    before any launch, unpadded (both widths are multiples of 8)."""
     from repro_torch.kernels import flash_attention as tfa
 
+    assert tfa.padded_dims(d, d) == (d, d)
     q, k, v, dout = (t(x).to(torch.bfloat16)
                      for x in flash_inputs((1, 16, 16, 2, 2, d, True), seed=15))
-    with pytest.raises(ValueError, match=r"head dims \(64, 80, 96, 128, 256\)"):
+    with pytest.raises(ValueError, match="CUDA"):
         if which == "fwd":
             tfa.flash_attention_fwd(q, k, v)
         else:
@@ -638,24 +642,102 @@ def test_flash_dv_call_reaches_the_cuda_only_refusal(which, dtype, d, dv):
 
 
 def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
-    """bf16 pairs without an instantiation are refused by name, before the
-    device check; V must share K's batch, length and heads; dO and O must
-    be V's width."""
+    """A bf16 pair without an instantiation of its own, (96, 32), runs at
+    the next one, and a width that is not a multiple of 8 at the next
+    multiple: both reach the device check.  Widths above 256 are refused
+    by name; V must share K's batch, length and heads; dO and O must be
+    V's width."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(torch.bfloat16) for x in flash_inputs(
         (1, 16, 16, 2, 2, 96, 32, True), seed=19))
-    with pytest.raises(ValueError, match=r"\(96, 32\).*\(\(96, 64\),\)"):
+    assert tfa.padded_dims(96, 32) == (96, 32)
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, v)
     q, k, v, dout = (t(x) for x in flash_inputs(
         (1, 16, 16, 2, 2, 96, 64, True), seed=19))
     with pytest.raises(ValueError, match="Dv"):
         tfa.flash_attention_fwd(q, k, v[:, :8])
-    with pytest.raises(ValueError, match="v head dim 12"):
+    assert tfa.padded_dims(96, 12) == (96, 16)
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, v[..., :12])
+    wide = torch.zeros((1, 16, 2, 264))
+    with pytest.raises(ValueError, match="head dim 264 must be in"):
+        tfa.flash_attention_fwd(wide, wide, v)
+    with pytest.raises(ValueError, match="v head dim 264 must be in"):
+        tfa.flash_attention_fwd(q, k, wide)
     lse = torch.zeros((1, 2, 16), dtype=torch.float32)
     with pytest.raises(ValueError, match=r"shape \(1, 16, 2, 64\)"):
         tfa.flash_attention_bwd(q, k, v, q, lse, dout)
+
+
+@pytest.mark.parametrize("d,dv", [(72, 72), (112, 112), (160, 160),
+                                  (100, 100), (96, 32), (20, 44)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_new_widths_reach_the_cuda_only_refusal(d, dv, dtype):
+    """Every head width up to 256 gets past the shape checks, forward and
+    backward, to the device check; the wrappers hand the kernels
+    :func:`padded_dims` (the next multiple of 8, fewer than 8 columns
+    more), and the bf16 route runs those at the smallest instantiated
+    pair that holds them."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, dout = (t(x).to(dtype) for x in flash_inputs(
+        (1, 16, 16, 4, 2, d, dv, True), seed=21))
+    kd, kdv = tfa.padded_dims(d, dv)
+    assert 0 <= kd - d < 8 and 0 <= kdv - dv < 8 and kd % 8 == kdv % 8 == 0
+    lse = torch.zeros((1, 4, 16), dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_bwd(q, k, v, dout, lse, dout)
+
+
+def test_flash_padding_keeps_the_plain_result():
+    """Zero columns past the true widths, as the bf16 kernels' boxes read
+    them past a head narrower than its instantiation (and as the wrapper
+    pads a width that is not a multiple of 8): Q, K and V zero-padded to
+    the kernel's widths, the softmax scale the true width's, give the true
+    result in the kept columns (the plain version stands in for the
+    kernel): at the wrapper's padded widths and at (128, 128), where the
+    bf16 route runs (100, 36)."""
+    from repro_torch.kernels import flash_attention as tfa
+
+    q, k, v, _ = (t(x) for x in flash_inputs((2, 24, 24, 4, 2, 100, 36,
+                                              True), seed=22))
+    want = tref.flash_attention(q, k, v, causal=True)
+    for kd, kdv in (tfa.padded_dims(100, 36), (128, 128)):
+        padded = tref.flash_attention(tfa._pad(q, kd), tfa._pad(k, kd),
+                                      tfa._pad(v, kdv), causal=True,
+                                      scale=100 ** -0.5)
+        assert padded.shape[-1] == kdv
+        torch.testing.assert_close(tfa._unpad(padded, 36), want, atol=1e-6,
+                                   rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bf16_runs_a_pair_at_the_smallest_instantiation():
+    """The CUDA source's picker (``with_head_dims``, read through
+    ``bf16_kernel_dims``): every pair of widths up to 256 runs at the
+    smallest pair of ``BF16_PAIRS`` that holds its padded widths, by D +
+    Dv, then D; an instantiated pair runs at itself."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the picker lives in the built library")
+    from repro_torch.kernels import flash_attention as tfa
+
+    for d in range(4, 257, 12):
+        for dv in (8, 32, 36, 64, 72, 96, 100, 128, 200, 256):
+            d8, dv8 = tfa.padded_dims(d, dv)
+            want = min((p for p in tfa.BF16_PAIRS
+                        if p[0] >= d8 and p[1] >= dv8),
+                       key=lambda p: (p[0] + p[1], p[0]))
+            assert tfa.bf16_kernel_dims(d, dv) == want, (d, dv)
+    for pair in tfa.BF16_PAIRS:
+        assert tfa.bf16_kernel_dims(*pair) == pair
+    assert {(72, 72): (80, 80), (96, 32): (96, 64), (192, 192): (256, 256),
+            (100, 36): (128, 128)} == {
+        p: tfa.bf16_kernel_dims(*p) for p in
+        ((72, 72), (96, 32), (192, 192), (100, 36))}
 
 
 @pytest.mark.cuda

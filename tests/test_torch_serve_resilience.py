@@ -409,7 +409,7 @@ def test_serve_engine_matches_reference(pairs, tmp_path):
     assert got["torch"] == got["jax"]
 
 
-def test_serve_local_runs_on_its_defaults():
+def test_serve_local_runs_on_its_defaults(tmp_path):
     """Prefix cache on, pager built, paged scheduler: the defaults."""
     with Serve.local(ServeConfig(device="cpu")) as srv:
         assert srv.pager is not None and srv.prefix_cache is not None
@@ -420,12 +420,22 @@ def test_serve_local_runs_on_its_defaults():
         assert all(len(srv.output(s)) == MAX_NEW for s in sids)
         assert srv.stats["prefix_hits"] > 0
         assert Serve.stats(srv)["merged"]["counters"]["sched"]["finished"] == 4
-    for call in (lambda: ServeConfig().worker_spec("/x"),
-                 lambda: Serve.fleet(ServeConfig())):
-        with pytest.raises(NotImplementedError, match="1.4"):
-            call()
-    with pytest.raises(NotImplementedError, match="1.4"):
-        TPager.for_fleet(None, fast_bytes=1)
+    # the fleet's construction surface (no worker spawned): the spec
+    # carries every resilience knob and the device, a fleet of zero
+    # workers is refused, and a fleet pager stacks hbm over the shared tier
+    spec = ServeConfig(slots=3, max_len=64, page_tokens=8, ckpt_every=6,
+                       hb_interval_s=0.07, adopt_batch=32, seed=5,
+                       device="cpu").worker_spec("/x", name="w9")
+    assert (spec.name, spec.ckpt_every, spec.hb_interval_s, spec.adopt_batch,
+            spec.slots, spec.max_len, spec.page_tokens, spec.seed,
+            spec.shared_root, spec.device, spec.full_size) == (
+        "w9", 6, 0.07, 32, 3, 64, 8, 5, "/x", "cpu", False)
+    with pytest.raises(ValueError, match="at least one worker"):
+        Serve.fleet(ServeConfig(), workers=0)
+    from repro_torch.memory.shared import SharedTier
+    pager = TPager.for_fleet(SharedTier(tmp_path / "dom"), fast_bytes=1 << 20)
+    assert [name for name, _ in pager.stack.levels] == ["hbm", "shared"]
+    pager.close()
 
 
 def test_examples_serve_flow(tmp_path):

@@ -140,6 +140,6 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     x, dt, A, Bm, Cm, _ = map(t, ssd_inputs((1, 8, 2, 8, 8), seed=23))
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_fwd(x, dt, A, Bm, Cm)
-    ckpt = torch.zeros((1, 2, 1, 8, 8))
+    ckpt = (torch.zeros((1, 2, 1, 8, 8)),)
     with pytest.raises(ValueError, match="CUDA"):
         tssd.ssd_bwd(x, dt, A, Bm, Cm, ckpt, x)

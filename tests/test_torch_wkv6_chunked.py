@@ -203,6 +203,6 @@ def test_kernel_wrappers_take_cuda_tensors_only():
     r, k, v, w, u, _ = map(t, wkv_inputs((1, 8, 2, 8), seed=35))
     with pytest.raises(ValueError, match="CUDA"):
         wkv.wkv6_fwd(r, k, v, w, u)
-    ckpt = torch.zeros((1, 2, 1, 8, 8))
+    ckpt = (torch.zeros((1, 2, 1, 8, 8)),)
     with pytest.raises(ValueError, match="CUDA"):
         wkv.wkv6_bwd(r, k, v, w, u, ckpt, r)
