@@ -39,8 +39,9 @@ which raises on a failed check:
    plain versions: the tokens must be identical (a difference where the
    plain path's top two logits tie within the float32 bound is reported
    as a tie);
-5. the phase-2 requests over an int8 pool through the int8 kernel, with
-   token agreement against phase 2 reported;
+5. the first 4 phase-2 requests over an int8 pool through the int8
+   kernel (16 new tokens a request), with token agreement against phase 2
+   reported;
 6. the flash-attention kernels (forward, and backward through autograd)
    against their plain version: phi3 heads (32/32, D 96) at the training
    shape (B 4, T 512), starcoder2-7b's (36 over 4, D 128), zamba2's
@@ -67,7 +68,8 @@ which raises on a failed check:
    are 2 forward (remat) + 1 backward pass (3 launches) per layer per
    step with no plain or library attention call, and the final state's
    SHA-256 equals an
-   uninterrupted run's; step ms, checkpoint bytes and seconds, restore
+   uninterrupted run's (the same steps without checkpoints, as phases
+   11-12 run theirs); step ms, checkpoint bytes and seconds, restore
    seconds, peak device memory and free disk reported;
 9. the phase-8 state checkpointed with NAM_XOR, node 3 killed and the
    state restored byte-identically; each XOR group's fragments stacked on
@@ -102,8 +104,8 @@ which raises on a failed check:
    layer per step, 1 flash forward and 3 flash backward launches per
    group per step;
 13. resilient serving of full-size phi3-mini-3.8b through ``Serve.local``
-   (4 slots, max_len 256, page 16, quantum 4, spec_k=3; 8 requests
-   sharing a 48-token system prompt, 8-32 tokens of their own, 32 new
+   (4 slots, max_len 256, page 16, quantum 4, spec_k=3; 6 requests
+   sharing a 48-token system prompt, 8-32 tokens of their own, 6 new
    tokens): (a) no prefix cache, the default pool; (b) the prefix cache
    and a pool of 80 pages (five lanes), so admission spills: (a)'s
    tokens, spills, refills, prefix hits and saved prefill tokens > 0,
@@ -114,7 +116,7 @@ which raises on a failed check:
    bound in the pool, the stack closed, node 1 failed and recovered, a
    fresh stack restored (pool SHA-256, allocator, pager tables and trie
    equal to the saved) and finished with (a)'s tokens; (d) the
-   contiguous scheduler (2 slots, quantum 2, 4 requests, 4 new tokens,
+   contiguous scheduler (2 slots, quantum 2, 3 requests, 4 new tokens,
    full depth) with pager and prefix cache, uninterrupted and through
    the same kill and restore: the same tokens, parks and resumes through
    the pager, no paged launch, one plain decode attention call per
@@ -133,8 +135,8 @@ which raises on a failed check:
    of 8): one recovery, a falling loss, 2 forward and 3 backward flash
    launches per layer per step, the uninterrupted run's state bytes;
    (e) ``Serve.local`` paged with the prefix cache at full size (4
-   slots, page 16, 8 requests of 16-48 tokens sharing a 16-token page,
-   8 new tokens): spec_k=3 and spec_k=0 emit identical tokens, with no
+   slots, page 16, 4 requests of 16-48 tokens sharing a 16-token page,
+   4 new tokens): spec_k=3 and spec_k=0 emit identical tokens, with no
    kernel launch (MLA decodes in latent space with plain einsums, as
    the reference does);
 15. deepseek-moe-16b (28 layers, the first dense; 64 routed experts,
@@ -181,11 +183,11 @@ which raises on a failed check:
    max_len 32, quantum 3): worker B reuses the whole 12-token prefix
    worker A published (B's prefill = its target less the 12 saved,
    shared-tier hits and adopted nodes > 0), 8 requests of 4 new tokens on
-   1 and on 2 workers, five batches of fresh prompts (tok/s and the
+   1 and on 2 workers, two batches of fresh prompts (tok/s and the
    speedup's median and range beside fig12's 1.5, reported), a noisy tenant over its quota of 1 throttled while all 9
    requests complete (the quiet tenant's p99 admission beside fig12's
    1.0 s, reported); (b) fig13's set-up (max_len 256, an epoch checkpoint
-   every 4 steps, heartbeats 0.05 s, timeout 0.3 s, 4 streams of 64 new
+   every 4 steps, heartbeats 0.05 s, timeout 0.3 s, 4 streams of 16 new
    tokens, fig13's 160 cut for time): worker 0 SIGKILLed after its first epoch record while its
    streams are unfinished; every stream ends with the tokens of the
    in-process ``Serve.local`` oracle, the victim is ``dead``, one worker
@@ -196,16 +198,49 @@ which raises on a failed check:
    iterations, with no plain decode attention call, and the same of every
    worker's own counts since its ``ready`` (read from its ``stats`` reply:
    the victim's just before the kill, the others' at the end of their
-   runs).
+   runs);
+18. the task runtime, error-feedback compression and the collectives:
+   (a) fig10's task-resilience scenarios on the card (8 cycles of its FWI
+   proxy over a 96 x 96 grid, rank 5): clean (journaled), resilient with a
+   failure armed at the last cycle, and no resiliency (a full restart):
+   the resilient model equal to the clean one bit for bit, 1 retry and 1
+   restart, and a fresh runtime over the journal fast-forwarding every
+   cycle with 0 launches to the clean model on the card; the wall times
+   and fig10's ratios reported; (b) one ``train_step`` of phi3-mini-3.8b
+   at phase 8's size as a task with a failure armed on its rank: one retry
+   from the host snapshot, the state byte-identical to the same step run
+   outside the runtime; the snapshot's bytes and seconds; (c) a
+   full-width phi3 gradient tree (2 layers' shapes, values from a seed)
+   compressed to int8 and back on the card: every leaf within half its
+   scale (plus one float32 rounding), GB/s, q and scale against a CPU run
+   at three leaves (a reading); (d) ``xor_all_reduce`` over 4 ranks, one
+   process and CUDA context each on the one card, of (1,241,902, 128)
+   int32 blocks: gloo carries the exchange through host buffers and the
+   CUDA XOR kernel does each combine; every rank ends with the numpy XOR
+   of the four blocks, with 2 kernel launches and no plain XOR call each;
+   seconds per round (exchange, kernel); then ``hierarchical_psum`` of an
+   (8192, 3072) f32 leaf over a 2 x 2 grouping, allclose to the flat sum.
 
 Phase 10 also runs the repair cases: the scans' gradient through the
 final state (a loss on y and on the final state) at 64-wide shapes, WKV6
 at head sizes 128 and 80 and SSD at (P, N) = (64, 128) and (128, 64)
-(tiles of the 64-wide kernels on the float32 route), and flash at (D, Dv)
+(tiles of the 64-wide kernels on the float32 route), flash at (D, Dv)
 = (72, 72), (112, 112), (160, 160), (100, 100) and (96, 32) (zero-padded
-to the next instantiation), each f32 and bf16 against the plain version
-(f32 gradients also against float64), twice bit-identical, with bf16
-times; flash refuses D 264 by name.
+to the next instantiation) and past 256 on the wide kernels, (264, 264),
+(300, 300), (320, 320), (512, 512) and absorbed MLA's (576, 512), each f32
+and bf16 against the plain version (f32 gradients also against float64),
+twice bit-identical, with bf16 times (past 256 beside every SDPA form that
+takes the call, and those that refuse it), and both paged kernels (plain
+and int8 pools, f32 and bf16, the multi-token folds) at D 100 (padded to
+104), 320 and 576 (the boxed span kernel) against their plain versions,
+twice bit-identical, with bf16 times beside the bound and the fastest SDPA
+backend that takes the call.  For time, phase 5 runs 4 requests of 16
+new tokens (8 of 32 before), phase 13 6 requests of 6 new tokens in (a)
+to (c) (8 of 32 before) and 3 requests in (d) (4 before), and phase 17
+two scaling batches (five before) and fig13's streams to 16 new tokens
+(64 before); phase 8's uninterrupted run takes its steps without
+checkpoints (two and a restore before) and phase 14 (e) serves 4
+requests of 4 new tokens (8 of 8 before).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -260,7 +295,12 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, tree_leaves  # noqa: E402
+from repro_torch.core.tasks import TaskError, TaskRuntime, _snapshot  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.memory.tiers import MemoryTier, TierKind, TierSpec  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.compression import (compress_grads,  # noqa: E402
+                                           decompress_grads, init_residual)
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
 from repro_torch.train.step import (init_train_state, make_prefill_step,  # noqa: E402
                                     make_train_step)
@@ -281,6 +321,7 @@ DEVICE = "cuda"
 SERVE = dict(arch="phi3-mini-3.8b", full_size=True, prefix=False, slots=4,
              max_len=256, page_tokens=16, quantum=4, device=DEVICE)
 N_REQUESTS, MAX_NEW = 8, 32
+INT8_REQUESTS, INT8_MAX_NEW = 4, 16   # phase 5 (8 of 32 before a cut for time)
 FLASH_F32_TOL = dict(atol=3e-6, rtol=1e-5)   # tests/test_kernels.py:35-73
 FLASH_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 # float32 gradients sum up to g * T = 9 * 512 products per element; the
@@ -346,6 +387,22 @@ REPAIR_FLASH = {   # b, tq, tk, hq, hkv, d, dv
     "(160, 160)": (2, 256, 256, 8, 2, 160, 160),
     "(100, 100)": (2, 256, 256, 8, 2, 100, 100),
     "(96, 32)": (2, 256, 256, 8, 2, 96, 32),
+    # past 256 columns (the wide kernels, both dtypes); (576, 512) is
+    # absorbed MLA decode's (DeepSeek-V2/V3: a 512-wide latent plus 64 rope
+    # columns)
+    "(264, 264)": (2, 256, 256, 8, 2, 264, 264),
+    "(300, 300)": (2, 256, 256, 8, 2, 300, 300),
+    "(320, 320)": (2, 256, 256, 8, 2, 320, 320),
+    "(512, 512)": (2, 256, 256, 8, 2, 512, 512),
+    "(576, 512)": (2, 256, 256, 8, 2, 576, 512),
+}
+# the paged kernels off a multiple of 8 (padded by the wrapper) and past 256
+# (the boxed span kernel): b, hq, hkv, d, page, nP, lengths (phase 1's
+# ragged lengths, two spans and more)
+REPAIR_PAGED = {
+    "D=100": (4, 8, 2, 100, 16, 16, [1, 63, 130, 256]),
+    "D=320": (4, 8, 2, 320, 16, 16, [1, 63, 130, 256]),
+    "D=576": (4, 16, 1, 576, 16, 16, [1, 63, 130, 256]),
 }
 # phase 10's case below the model's decay clip: w down to 1e-20 on every
 # other channel, against the sequential oracle (the chunked plain version
@@ -369,7 +426,14 @@ TRAIN = dict(arch="phi3-mini-3.8b", layers=2, batch=4, seq=512, steps=8,
 TRAIN_DISK_2L = 40 * 2**30
 
 
+T_START = time.perf_counter()
+
+
 def say(*parts) -> None:
+    """Print a line; a phase's header (``== ...``) carries the seconds
+    since the script started."""
+    if parts and str(parts[0]).startswith("== "):
+        parts = (f"[{time.perf_counter() - T_START:.1f} s]",) + parts
     print(*parts, flush=True)
 
 
@@ -927,13 +991,13 @@ def release() -> None:
     torch.cuda.empty_cache()
 
 
-def serve(cfg: ServeConfig, prompts):
+def serve(cfg: ServeConfig, prompts, max_new=MAX_NEW):
     """Serve ``prompts`` through ``Serve.local(cfg)``; returns the outputs,
     stats, wall seconds, the number of token iterations that ran the
     decode step (prefill chunks included) and the layer count."""
     torch.cuda.reset_peak_memory_stats()
     srv = Serve.local(cfg)
-    sids = [srv.submit(p, max_new=MAX_NEW) for p in prompts]
+    sids = [srv.submit(p, max_new=max_new) for p in prompts]
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -1738,77 +1802,176 @@ def scan_repair_ms(kind, shape) -> dict:
             "fwd_bound_ms": fb, "bwd_bound_ms": bb, "tile_launches": tiles}
 
 
+def sdpa_decode_ms(q, k, v, table, lengths) -> dict:
+    """Paged decode as one SDPA call over the cache gathered beforehand
+    (kv heads repeated, the lengths as a boolean mask), each backend pinned
+    in turn, by CUDA events: the fastest that takes it, and the refusals."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    n, page, hkv, d = k.shape
+    g = q.shape[1] // hkv
+    tb = table.clamp(0, n - 1).long()
+    kc, vc = (ref.gather_pages(x, tb).to(q.dtype).repeat_interleave(g, 2)
+              .transpose(1, 2).contiguous() for x in (k, v))
+    s = tb.shape[1] * page
+    mask = (torch.arange(s, device=q.device)[None, :]
+            < lengths[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    best, refused = None, []
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        name = f"sdpa/{backend.name.lower().replace('_attention', '')}"
+        call = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q4, kc, vc, attn_mask=mask)
+        try:
+            with sdpa_kernel(backend):
+                call()
+                ms = time_ms(call, iters=20, warmup=3)
+        except RuntimeError:
+            refused.append(name)
+            continue
+        if best is None or ms < best[0]:
+            best = (ms, name)
+    return {"library_ms": None if best is None else best[0],
+            "library": "none" if best is None else best[1],
+            "refused": refused}
+
+
+def repair_paged(label, shape) -> dict:
+    """The paged kernels (plain and int8 pools, float32 and bfloat16, the
+    multi-token folds) against their plain versions at one width, twice
+    bit-identical; bf16 times beside the bound and the fastest SDPA."""
+    b, hq, hkv, d, page, n_p, lens = shape
+    errs = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        paged_checks(f"{label}", shape, dtype, errs)
+    q, k, v, table, lengths = make_case(b, hq, hkv, d, page, n_p, lens,
+                                        torch.bfloat16, seed=SEED + 16)
+    k, v = k[0], v[0]
+    kq, ks = ref.quantize_pages(k)
+    vq, vs = ref.quantize_pages(v)
+    calls = {"paged_attention": lambda: ops.paged_attention(q, k, v, table,
+                                                            lengths),
+             "paged_attention_quant": lambda: ops.paged_attention_quant(
+                 q, kq, ks, vq, vs, table, lengths)}
+    rec = {"shape": [b, hq, hkv, d, page, n_p, lens],
+           "kernel_d": -(-d // 8) * 8}
+    lib = sdpa_decode_ms(q, k, v, table, lengths)
+    for name, call in calls.items():
+        if not torch.equal(call(), call()):
+            raise AssertionError(f"{name} {label}: a repeated run gave other "
+                                 "bits")
+        bound, by = kernel_bound_ms(q, kq if name.endswith("quant") else k,
+                                    table, lengths,
+                                    quant=name.endswith("quant"))
+        plain = {"paged_attention": lambda: ops.paged_attention(
+                     q, k, v, table, lengths, use_kernel=False),
+                 "paged_attention_quant": lambda: ops.paged_attention_quant(
+                     q, kq, ks, vq, vs, table, lengths, use_kernel=False)}[name]
+        rec[name] = {"ms": time_ms(call, iters=20, warmup=3),
+                     "plain_ms": time_ms(plain, iters=5, warmup=1),
+                     "bound_ms": bound, "bound_by": by,
+                     "max_abs_err": errs[name], **lib}
+        say(f"  {name} {label} bf16 (kernel at D {rec['kernel_d']}): "
+            f"{rec[name]['ms']:.5f} ms, plain {rec[name]['plain_ms']:.5f} ms, "
+            f"bound {bound:.5f} ({by}); "
+            f"{lib['library']} {lib['library_ms']}, refused {lib['refused']}")
+    return rec
+
+
 def phase10_repairs() -> dict:
     """Faults 5 and 3 repaired: the scans' final-state gradient, the scans
-    past 64 and flash at every width up to 256, each against its plain
+    past 64, flash at every width (past 256 on the wide kernels) and the
+    paged kernels off a multiple of 8 and past 256, each against its plain
     version, twice bit-identical, with bf16 times."""
     say("== phase 10 (repairs): the scans' final-state gradient and widths "
-        "past 64; flash at widths with no instantiation of their own")
+        "past 64; flash and paged at every head width")
     f32, bf16 = torch.float32, torch.bfloat16
-    out = {"wkv6": {}, "ssd": {}, "flash": {}}
+    out = {"wkv6": {}, "ssd": {}, "flash": {}, "paged": {}}
     for kind, shapes in REPAIR_SCANS.items():
         for label, shape in shapes.items():
             errs = {str(dtype)[6:]: scan_state_grad(kind, shape, dtype)
                     for dtype in (f32, bf16)}
             out[kind][label] = dict(scan_repair_ms(kind, shape), errors=errs)
             release()
-    for label, (b, tq, tk, hq, hkv, d, dv) in REPAIR_FLASH.items():
-        rec = {"shape": [b, tq, tk, hq, hkv, d, dv],
-               "kernel_dims": {"float32": list(fa.padded_dims(d, dv)),
-                               "bfloat16": list(fa.bf16_kernel_dims(d, dv))}}
-        for dtype in (f32, bf16):
-            tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
-            bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
-            tag = f"(D, Dv) = {label} {str(dtype)[6:]}"
-            q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, dtype,
-                                         seed=SEED + 14, dv=dv)
-            got = flash_grads(q, k, v, dout, None)
-            want = flash_grads(q, k, v, dout, False)
-            err = check_close(f"flash fwd {tag}", got[0], want[0], **tol)
-            for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
-                err = max(err, check_close(f"flash bwd {name} {tag}", g, w,
-                                           **bwd_tol))
-            if dtype == f32:
-                exact = flash_grads(q.double(), k.double(), v.double(),
-                                    dout.double(), False)
-                dist = lambda xs: max((x.double() - e).abs().max().item()
-                                      for x, e in zip(xs, exact[1:]))
-                kern_d, plain_d = dist(got[1:]), dist(want[1:])
-                say(f"    distance to float64, dQ/dK/dV: kernel {kern_d:.3e}, "
-                    f"plain {plain_d:.3e} (limit max(plain, {FLASH_F64_ATOL}))")
-                if kern_d > max(plain_d, FLASH_F64_ATOL):
-                    raise AssertionError(f"flash bwd {tag}: the kernel lies "
-                                         f"{kern_d:.3e} from float64")
-            again = flash_grads(q, k, v, dout, None)
-            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-                raise AssertionError(f"flash {tag}: a repeated run gave other "
-                                     "bits")
-            rec[f"max_abs_err_{str(dtype)[6:]}"] = err
-        q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, bf16,
-                                     seed=SEED + 15, dv=dv)
-        o, lse = fa.flash_attention_fwd(q, k, v)
-        rec["fwd_ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v),
-                                iters=20, warmup=3)
-        rec["bwd_ms"] = time_ms(
-            lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout), iters=20,
-            warmup=3)
-        rec["fwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, False,
-                                             dv=dv)[0]
-        rec["bwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, True,
-                                             dv=dv)[0]
-        say(f"  flash {label} bf16 at {rec['kernel_dims']['bfloat16']}: "
-            f"forward {rec['fwd_ms']:.5f} ms (bound {rec['fwd_bound_ms']:.5f}), "
-            f"backward {rec['bwd_ms']:.5f} ms (bound {rec['bwd_bound_ms']:.5f})")
-        out["flash"][label] = rec
+    for label, shape in REPAIR_FLASH.items():
+        out["flash"][label] = repair_flash(label, shape)
         release()
-    q, k, v, _ = flash_inputs(1, 16, 16, 2, 2, 264, bf16)
-    try:
-        ops.flash_attention(q, k, v)
-    except ValueError as e:
-        say(f"  flash refuses D 264 by name: {e}")
-    else:
-        raise AssertionError("the flash kernel path accepted D 264")
+    for label, shape in REPAIR_PAGED.items():
+        out["paged"][label] = repair_paged(label, shape)
+        release()
     return out
+
+
+def repair_flash(label, shape) -> dict:
+    """Flash at one (D, Dv) against the plain version, forward and
+    backward, f32 (also against float64) and bf16, twice bit-identical;
+    bf16 times beside the bound, and past 256 the SDPA forms that take the
+    call and those that refuse it."""
+    b, tq, tk, hq, hkv, d, dv = shape
+    f32, bf16 = torch.float32, torch.bfloat16
+    rec = {"shape": [b, tq, tk, hq, hkv, d, dv], "wide": fa.is_wide(d, dv),
+           "kernel_dims": {"float32": list(fa.padded_dims(d, dv)),
+                           "bfloat16": list(fa.bf16_kernel_dims(d, dv))}}
+    for dtype in (f32, bf16):
+        tol = FLASH_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+        bwd_tol = FLASH_BWD_F32_TOL if dtype == f32 else FLASH_BF16_TOL
+        tag = f"(D, Dv) = {label} {str(dtype)[6:]}"
+        q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, dtype,
+                                     seed=SEED + 14, dv=dv)
+        got = flash_grads(q, k, v, dout, None)
+        want = flash_grads(q, k, v, dout, False)
+        err = check_close(f"flash fwd {tag}", got[0], want[0], **tol)
+        for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+            err = max(err, check_close(f"flash bwd {name} {tag}", g, w,
+                                       **bwd_tol))
+        if dtype == f32:
+            exact = flash_grads(q.double(), k.double(), v.double(),
+                                dout.double(), False)
+            dist = lambda xs: max((x.double() - e).abs().max().item()
+                                  for x, e in zip(xs, exact[1:]))
+            kern_d, plain_d = dist(got[1:]), dist(want[1:])
+            say(f"    distance to float64, dQ/dK/dV: kernel {kern_d:.3e}, "
+                f"plain {plain_d:.3e} (limit max(plain, {FLASH_F64_ATOL}))")
+            if kern_d > max(plain_d, FLASH_F64_ATOL):
+                raise AssertionError(f"flash bwd {tag}: the kernel lies "
+                                     f"{kern_d:.3e} from float64")
+        again = flash_grads(q, k, v, dout, None)
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            raise AssertionError(f"flash {tag}: a repeated run gave other "
+                                 "bits")
+        rec[f"max_abs_err_{str(dtype)[6:]}"] = err
+    q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, bf16,
+                                 seed=SEED + 15, dv=dv)
+    o, lse = fa.flash_attention_fwd(q, k, v)
+    rec["fwd_ms"] = time_ms(lambda: fa.flash_attention_fwd(q, k, v),
+                            iters=20, warmup=3)
+    rec["bwd_ms"] = time_ms(
+        lambda: fa.flash_attention_bwd(q, k, v, o, lse, dout), iters=20,
+        warmup=3)
+    qr, kr, vr = (x.detach().requires_grad_() for x in (q, k, v))
+    plain_out = ref.flash_attention(qr, kr, vr, causal=True)
+    rec["plain_fwd_ms"] = time_ms(lambda: ref.flash_attention(q, k, v),
+                                  iters=5, warmup=1)
+    rec["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
+        plain_out, (qr, kr, vr), dout, retain_graph=True), iters=5, warmup=1)
+    del qr, kr, vr, plain_out
+    rec["fwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, False,
+                                         dv=dv)[0]
+    rec["bwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, True,
+                                         dv=dv)[0]
+    say(f"  flash {label} bf16 at {rec['kernel_dims']['bfloat16']}"
+        f"{' (wide kernels)' if rec['wide'] else ''}: "
+        f"forward {rec['fwd_ms']:.5f} ms (bound {rec['fwd_bound_ms']:.5f}, "
+        f"plain {rec['plain_fwd_ms']:.5f}), backward {rec['bwd_ms']:.5f} ms "
+        f"(bound {rec['bwd_bound_ms']:.5f}, plain {rec['plain_bwd_ms']:.5f})")
+    if rec["wide"]:
+        refused = []
+        say(f"  SDPA at {label}:")
+        lib = sdpa_best_ms(q, k, v, dout, True, 0, refused=refused)
+        rec.update(library_fwd_ms=lib["fwd"][0], library_fwd=lib["fwd"][1],
+                   library_bwd_ms=lib["bwd"][0], library_bwd=lib["bwd"][1],
+                   library_refused=refused)
+    return rec
 
 
 # ---------------------------------------------------------------------- #
@@ -1844,17 +2007,39 @@ def dir_bytes(root: Path) -> int:
     return sum(p.stat().st_size for p in root.rglob("*") if p.is_file())
 
 
-def train_run(cfg, root: Path, failures, keep_state=False):
+def train_plain(cfg) -> tuple:
+    """The uninterrupted run without checkpoints: the trainer's steps in
+    order (same init, same batches, same optimizer), as phases 11-12 run
+    theirs; returns the manifest a checkpoint of the final state would
+    carry, the losses, the step walls and the final state (host tensors,
+    as a restore gives them)."""
+    model = get_model(cfg)
+    state = init_train_state(SEED, cfg, model, device=DEVICE)
+    pipe = TokenPipeline(cfg.vocab_size, global_batch=TRAIN["batch"],
+                         seq_len=TRAIN["seq"], seed=SEED)
+    step = make_train_step(cfg, model, AdamWConfig(
+        lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"]))
+    losses, walls = [], []
+    for _ in range(TRAIN["steps"]):
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in pipe.next_batch().items()}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t0)
+    manifest = serialize_state_stream(state_to_numpy(state)).manifest
+    return manifest, losses, walls, tree_map(lambda t: t.detach().cpu(), state)
+
+
+def train_run(cfg, root: Path, failures):
     """``examples/quickstart.py``'s loop on the card; returns the report,
-    the final checkpoint's manifest, bytes on disk and (optionally) the
-    final state restored to host tensors."""
+    the final checkpoint's manifest and the bytes on disk."""
     cluster = VirtualCluster(n_cluster=4, n_booster=4, root=root)
     scr = SCRManager(cluster, TierStack.for_cluster(cluster),
                      strategy=Strategy.BUDDY, procs_per_node=2,
                      async_drain=True)
     pipeline = TokenPipeline(cfg.vocab_size, global_batch=TRAIN["batch"],
                              seq_len=TRAIN["seq"], seed=SEED)
-    state = None
     with ResilienceSession(scr, policy=IntervalPolicy(TRAIN["ckpt_every"])
                            ) as session:
         trainer = Trainer(cfg, get_model(cfg), pipeline, session,
@@ -1864,14 +2049,8 @@ def train_run(cfg, root: Path, failures, keep_state=False):
         report = trainer.run(total_steps=TRAIN["steps"])
         manifest = scr._descriptor(TRAIN["steps"])["manifest"]
         on_disk = dir_bytes(root)
-        if keep_state:
-            template = init_train_state(SEED, cfg, trainer.model, DEVICE)
-            t0 = time.perf_counter()
-            state, _ = session.restore_latest(template)
-            report.restore_wall_s.append(time.perf_counter() - t0)
-            del template
     cluster.teardown()
-    return report, manifest, on_disk, state
+    return report, manifest, on_disk
 
 
 def report_train(tag, report, manifest, on_disk):
@@ -1907,9 +2086,16 @@ def phase8() -> tuple:
     say(f"  deterministic algorithms on, CUBLAS_WORKSPACE_CONFIG="
         f"{os.environ['CUBLAS_WORKSPACE_CONFIG']}, TF32 off")
     try:
-        clean, clean_manifest, disk, state = train_run(
-            cfg, tmp / "clean", None, keep_state=True)
-        report_train("uninterrupted", clean, clean_manifest, disk)
+        # the uninterrupted run without checkpoints (a Trainer run with
+        # two checkpoints and a restore before a cut for time); its final
+        # state goes on to phase 9
+        clean_manifest, losses, walls, state = train_plain(cfg)
+        say(f"  uninterrupted (no checkpoints): loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f}; step median "
+            f"{1e3 * sorted(walls)[len(walls) // 2]:.1f} ms (first "
+            f"{1e3 * walls[0]:.1f} ms); final state sha256 "
+            f"{clean_manifest['sha256'][:16]}.. over "
+            f"{clean_manifest['total_bytes']} bytes")
         release()
 
         # the main path: counts from zero, plain and library attention
@@ -1929,7 +2115,7 @@ def phase8() -> tuple:
         fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
         torch.cuda.reset_peak_memory_stats()
         try:
-            faulty, manifest, disk, _ = train_run(
+            faulty, manifest, disk = train_run(
                 cfg, tmp / "faulty",
                 [FailureEvent(step=TRAIN["fail_step"], rank=TRAIN["fail_rank"])])
         finally:
@@ -2359,8 +2545,8 @@ def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
 # (d)'s streams: 4 new tokens (cut from 8 for the script's time limit;
 # quantum 2 still parks every stream once)
 RESILIENT = dict(system=48, own=(8, 32), pool_pages=80, fail_rank=1,
-                 contig_requests=4, contig_slots=2, contig_quantum=2,
-                 contig_max_new=4)
+                 requests=6, max_new=6, contig_requests=3, contig_slots=2,
+                 contig_quantum=2, contig_max_new=4)
 
 
 def resilient_requests(vocab: int):
@@ -2368,7 +2554,7 @@ def resilient_requests(vocab: int):
     system = rng.integers(0, vocab, size=RESILIENT["system"]).tolist()
     lo, hi = RESILIENT["own"]
     return [system + rng.integers(0, vocab, size=int(rng.integers(lo, hi + 1))
-                                  ).tolist() for _ in range(N_REQUESTS)]
+                                  ).tolist() for _ in range(RESILIENT["requests"])]
 
 
 def tree_sha(tree) -> str:
@@ -2532,19 +2718,22 @@ def phase13(kernels: dict) -> dict:
     t_phase = time.perf_counter()
     arch = serve_arch()
     prompts = resilient_requests(arch.vocab_size)
-    say(f"  {N_REQUESTS} requests of {[len(p) for p in prompts]} tokens "
-        f"({RESILIENT['system']} shared), max_new={MAX_NEW}, spec_k=3; "
+    max_new = RESILIENT["max_new"]
+    say(f"  {len(prompts)} requests of {[len(p) for p in prompts]} tokens "
+        f"({RESILIENT['system']} shared), max_new={max_new}, spec_k=3; "
         f"slots {SERVE['slots']}, max_len {SERVE['max_len']}, page "
         f"{SERVE['page_tokens']}, quantum {SERVE['quantum']}")
     base = dict(SERVE, spec_k=3)
     runs = {}
     runs["a"] = resilient_run("(a) plain", ServeConfig(**base), prompts,
-                              MAX_NEW)
+                              max_new)
+    say("  (a) emitted tokens sha256[:16] = " + hashlib.sha256(json.dumps(
+        runs["a"]["outs"]).encode()).hexdigest()[:16])
     resilient = ServeConfig(**dict(base, prefix=True,
                                    pool_pages=RESILIENT["pool_pages"]))
-    runs["b"] = resilient_run("(b) resilient", resilient, prompts, MAX_NEW)
+    runs["b"] = resilient_run("(b) resilient", resilient, prompts, max_new)
     runs["c"] = resilient_run("(c) kill and restore", resilient, prompts,
-                              MAX_NEW, kill=True)
+                              max_new, kill=True)
     contig = ServeConfig(**dict(SERVE, paged=False, prefix=True,
                                 slots=RESILIENT["contig_slots"],
                                 quantum=RESILIENT["contig_quantum"]))
@@ -2639,7 +2828,7 @@ MLA_SHAPES = {   # b, tq, tk, hq, hkv, causal; the first is the training shape
 MLA_SERVE = dict(arch="minicpm3-4b", full_size=True, prefix=True, slots=4,
                  max_len=80, page_tokens=16, quantum=4, device=DEVICE)
 # 8 new tokens (cut from 16 for the script's time limit)
-MLA_REQUESTS = dict(n=8, system=16, own=(0, 32), max_new=8)
+MLA_REQUESTS = dict(n=4, system=16, own=(0, 32), max_new=4)   # 8 x 8 before a cut
 
 
 def sdpa_dv_ms(q, k, v, dout, causal, scale) -> dict:
@@ -3061,12 +3250,13 @@ def prefix_mask(tq, tk, prefix_len, device):
     return (k_pos <= q_pos) | (k_pos < prefix_len)
 
 
-def sdpa_best_ms(q, k, v, dout, causal, prefix_len) -> dict:
+def sdpa_best_ms(q, k, v, dout, causal, prefix_len, refused=None) -> dict:
     """SDPA on the same inputs, each backend pinned in turn, kv heads given
     as they are (``enable_gqa``) and repeated over their groups; a causal
     call with a prefix passes its visibility as a boolean mask.  The
     fastest forms that take the call, forward and backward, by CUDA
-    events, with every form's times and refusals printed."""
+    events, with every form's times and refusals printed (and the refusing
+    forms' names appended to ``refused``)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     g = q.shape[2] // k.shape[2]
@@ -3100,6 +3290,8 @@ def sdpa_best_ms(q, k, v, dout, causal, prefix_len) -> dict:
                         iters=10, warmup=2)
             except RuntimeError as e:
                 say(f"    {name} refuses: {str(e).splitlines()[0][:90]}")
+                if refused is not None:
+                    refused.append(name)
                 continue
             say(f"    {name}: forward {fwd:.5f} ms, backward {bwd:.5f} ms")
             for kind, ms in (("fwd", fwd), ("bwd", bwd)):
@@ -3314,13 +3506,13 @@ FLEET = dict(arch="phi3-mini-3.8b", full_size=True, device=DEVICE, slots=2,
 FLEET_A = dict(FLEET, max_len=32)
 FLEET_B = dict(FLEET, max_len=256, ckpt_every=4, hb_interval_s=0.05,
                hb_timeout_s=0.3)
-# fig13 --smoke decodes 160 new tokens a stream; cut to 64 to keep the
+# fig13 --smoke decodes 160 new tokens a stream; cut to 16 to keep the
 # script inside its time limit (the kill lands after the first epoch, a
 # few tokens in, either way)
 FLEET_RUN = dict(requests=8, shared=9, max_new=4,     # fig12 --smoke
-                 reps=5,            # the 1- and 2-worker batches, repeated
+                 reps=2,            # the 1- and 2-worker batches, repeated
                  criterion_prefix=12, noisy=6, quiet=3,
-                 streams=4, elastic_max_new=64,       # fig13 --smoke: 160
+                 streams=4, elastic_max_new=16,       # fig13 --smoke: 160
                  survivor_slack_s=4.0, recovery_slack_s=8.0,
                  quiet_p99_s=1.0, speedup=1.5, timeout_s=300.0,
                  draw=1000)                           # tokens drawn below
@@ -3709,6 +3901,374 @@ def phase17() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 18: the task runtime, error-feedback compression, the collectives
+# ---------------------------------------------------------------------- #
+
+# fig10's FWI proxy (benchmarks/fig10_task_resilience.py): 8 frequency
+# cycles as tasks on rank 5 over a 96 x 96 grid
+FIG10 = dict(cycles=8, grid=96, fail_rank=5)
+# (d): phase 9's XOR group block (rows of 128 int32) on each of 4 ranks, and
+# one phi3-sized f32 leaf (d_model x d_model) for the two-level sum
+XOR_RANKS, XOR_M = 4, 1_241_902
+PSUM_SHAPE = (8192, 3072)
+RANK_TIMEOUT_S = 60
+
+
+def fwi_cycle(model, freq):
+    """fig10's toy frequency-domain sweep: 20 Jacobi smoothing passes."""
+    m = model
+    for _ in range(20):
+        lap = (torch.roll(m, 1, 0) + torch.roll(m, -1, 0)
+               + torch.roll(m, 1, 1) + torch.roll(m, -1, 1) - 4 * m)
+        m = m + 0.2 * lap + 0.01 * torch.sin(freq * m)
+    return m
+
+
+def fig10_scenario(cluster, fail_task, resilient, journal=None):
+    """fig10's ``run_scenario`` on the card: -> (final model, stats,
+    restarts, wall s).  With a journal every cycle is a persistent task."""
+    n, g, rank = FIG10["cycles"], FIG10["grid"], FIG10["fail_rank"]
+    rt = TaskRuntime(cluster, journal_tier=journal,
+                     max_retries=3 if resilient else 0)
+    start = lambda: torch.full((g, g), 0.5, device=DEVICE)
+    model, restarts, cycle = start(), 0, 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while cycle < n:
+        try:
+            if fail_task is not None and cycle == fail_task:
+                cluster.arm_failure(rank, NodeState.FAILED_TRANSIENT)
+                fail_task = None
+            model = rt.run(f"cycle{cycle}_{restarts}", fwi_cycle, model,
+                           torch.tensor(float(cycle + 1), device=DEVICE),
+                           rank=rank, persistent=journal is not None)
+            cycle += 1
+        except TaskError:
+            # no resiliency: a full application restart from cycle 0
+            cluster.recover(rank)
+            model, cycle = start(), 0
+            restarts += 1
+    torch.cuda.synchronize()
+    return model, rt.stats, restarts, time.perf_counter() - t0
+
+
+def phase18_tasks(root: Path) -> dict:
+    """(a) fig10's three scenarios on the card, and the journal's replay."""
+    n = FIG10["cycles"]
+    say(f"  (a) fig10's scenarios: {n} cycles over a {FIG10['grid']}^2 grid on "
+        f"the card, a failure armed on rank {FIG10['fail_rank']} at cycle {n - 1}")
+    cluster = VirtualCluster(n_cluster=8, n_booster=8, root=root / "fig10")
+    fig10_scenario(cluster, None, True)    # warm-up, as fig10 warms its jit
+    journal = MemoryTier(TierSpec(TierKind.GLOBAL, 10**9, 1e9, 1e9, 0))
+    clean, cst, _, t_clean = fig10_scenario(cluster, None, True, journal)
+    res, rst, _, t_res = fig10_scenario(cluster, n - 1, True)
+    rest, _, restarts, t_rest = fig10_scenario(cluster, n - 1, False)
+    replay = TaskRuntime(cluster, journal_tier=journal)
+    calls = []
+    model = torch.full_like(clean, 0.5)
+    for cycle in range(n):
+        model = replay.run(f"cycle{cycle}_0", lambda *a: calls.append(1),
+                           model, torch.tensor(float(cycle + 1), device=DEVICE),
+                           rank=FIG10["fail_rank"], persistent=True)
+    cluster.teardown()
+    rec = {"wall_s": {"clean": t_clean, "resilient": t_res, "restart": t_rest},
+           "restart_over_clean": t_rest / t_clean,
+           "resilient_over_clean_minus_1": t_res / t_clean - 1,
+           "retried": rst.retried, "restarts": restarts,
+           "replayed": replay.stats.replayed,
+           "replay_launches": replay.stats.launched,
+           "clean_sum": float(clean.sum())}
+    say(f"    wall s: clean {t_clean:.4f}, resilient {t_res:.4f}, no "
+        f"resiliency {t_rest:.4f}; restart / clean {rec['restart_over_clean']:.3f} "
+        f"(fig10 ~2x), resilient / clean - 1 "
+        f"{rec['resilient_over_clean_minus_1']:+.3f} (fig10 ~+15%): readings")
+    say(f"    retried {rst.retried}, restarts {restarts}; journal replay: "
+        f"{replay.stats.replayed} replayed, {replay.stats.launched} launched, "
+        f"on {model.device}; final sum {rec['clean_sum']!r}")
+    failures = []
+    if not torch.equal(res, clean):
+        failures.append("(a) the resilient run's model differs from the clean "
+                        "run's")
+    if rst.retried != 1 or restarts != 1 or cst.retried:
+        failures.append(f"(a) want 1 retry and 1 restart, got {rst.retried} "
+                        f"and {restarts} (clean retried {cst.retried})")
+    if (replay.stats.replayed != n or replay.stats.launched or calls
+            or model.device.type != "cuda" or not torch.equal(model, clean)):
+        failures.append("(a) the journal did not fast-forward every cycle "
+                        "with 0 launches to the clean model on the card")
+    return rec, failures
+
+
+def phase18_step(root: Path) -> dict:
+    """(b) one phi3 training step at phase 8's size wrapped in a task with
+    a failure armed on its rank, against the same step outside."""
+    cfg = train_arch(TRAIN["layers"])
+    model = get_model(cfg)
+    say(f"  (b) one train_step of phi3-mini-3.8b at published width, "
+        f"{cfg.n_layers} layers, B {TRAIN['batch']} x T {TRAIN['seq']}, as a "
+        f"task on rank {TRAIN['fail_rank']} with a failure armed there")
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = init_train_state(SEED, cfg, model, DEVICE)
+        pipe = TokenPipeline(cfg.vocab_size, global_batch=TRAIN["batch"],
+                             seq_len=TRAIN["seq"], seed=SEED)
+        batch = {k: torch.from_numpy(v).to(DEVICE)
+                 for k, v in pipe.batch_at(0).items()}
+        step = make_train_step(cfg, model, AdamWConfig(
+            lr=TRAIN["lr"], warmup_steps=TRAIN["warmup"]))
+        outside, out_metrics = step(state, batch)
+        want_loss = float(out_metrics["loss"])
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in tree_leaves(state) + list(batch.values()))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        snap = _snapshot((state, batch))
+        snap_s = time.perf_counter() - t0
+        del snap
+        cluster = VirtualCluster(n_cluster=4, n_booster=4, root=root / "step")
+        cluster.arm_failure(TRAIN["fail_rank"], NodeState.FAILED_TRANSIENT)
+        rt = TaskRuntime(cluster, max_retries=2)
+        t0 = time.perf_counter()
+        got, metrics = rt.run("phi3_step", step, state, batch,
+                              rank=TRAIN["fail_rank"])
+        torch.cuda.synchronize()
+        task_s = time.perf_counter() - t0
+        # byte-identical: every leaf's bits equal, compared on the card
+        bits = lambda t: t.view({1: torch.uint8, 2: torch.int16,
+                                 4: torch.int32, 8: torch.int64}[t.element_size()])
+        pairs = list(zip(tree_leaves(got), tree_leaves(outside)))
+        same = all(a.shape == b.shape and a.dtype == b.dtype
+                   and torch.equal(bits(a), bits(b)) for a, b in pairs)
+        cluster.teardown()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    rec = {"snapshot_bytes": nbytes, "snapshot_s": snap_s, "task_s": task_s,
+           "stats": dataclasses.asdict(rt.stats), "identical": same,
+           "leaves": len(pairs), "loss": float(metrics["loss"])}
+    say(f"    snapshot {nbytes} bytes to the host in {snap_s:.3f} s; the task "
+        f"(failed attempt, retry from the snapshot, step) {task_s:.3f} s; "
+        f"stats {rec['stats']}; the state's {len(pairs)} leaves bit-identical "
+        f"to the step outside: {same}; loss {rec['loss']!r} (outside "
+        f"{want_loss!r})")
+    failures = []
+    if rt.stats.retried != 1 or rt.stats.completed != 1 or rt.stats.launched != 2:
+        failures.append(f"(b) want one retry from the snapshot, got "
+                        f"{rec['stats']}")
+    if not same or rec["loss"] != want_loss:
+        failures.append("(b) the step in the task differs from the step "
+                        "outside")
+    del state, batch, got, outside, pairs
+    release()
+    return rec, failures
+
+
+def phase18_compression() -> dict:
+    """(c) a full-width phi3 gradient tree (2 layers, shapes of the step's
+    parameters, values from a seed) compressed and decompressed on the
+    card; each leaf within half its scale (plus one float32 rounding of
+    the product) of the gradient."""
+    cfg = train_arch(TRAIN["layers"])
+    shapes = get_model(cfg).param_shapes(cfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 18)
+    grads = tree_map(lambda m: torch.randn(tuple(m.shape), generator=gen,
+                                           device=DEVICE) * 1e-3, shapes)
+    leaves = tree_leaves(grads)
+    nbytes = sum(t.numel() * 4 for t in leaves)
+    say(f"  (c) error-feedback int8 over {len(leaves)} gradient leaves, "
+        f"{nbytes} bytes (phi3 at published width, {cfg.n_layers} layers)")
+    residual = init_residual(grads)
+    times = {}
+    for _ in range(2):   # the second pass is timed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qs, ss, rs = compress_grads(grads, residual)
+        torch.cuda.synchronize()
+        times["compress_s"] = time.perf_counter() - t0
+        back = decompress_grads(qs, ss)
+        torch.cuda.synchronize()
+        times["decompress_s"] = time.perf_counter() - t0 - times["compress_s"]
+    failures = []
+    worst = 0.0
+    for g, q, sc, b in zip(leaves, tree_leaves(qs), tree_leaves(ss),
+                           tree_leaves(back)):
+        bound = float(sc) / 2 + 127 * float(sc) * torch.finfo(torch.float32).eps
+        err = (b - g).abs().max().item()
+        worst = max(worst, err / float(sc))
+        if q.dtype != torch.int8 or q.device != g.device or err > bound:
+            failures.append(f"(c) a {tuple(g.shape)} leaf: |dequant - g| {err} "
+                            f"> {bound} or q not int8 on the card")
+    same = []
+    for i in (0, len(leaves) // 2, len(leaves) - 1):
+        cq, cs, _ = compress_grads({"g": leaves[i].cpu()},
+                                   {"g": torch.zeros(leaves[i].shape)})
+        same.append(torch.equal(cq["g"], tree_leaves(qs)[i].cpu())
+                    and torch.equal(cs["g"], tree_leaves(ss)[i].cpu()))
+    rec = {"leaves": len(leaves), "bytes": nbytes, **times,
+           "compress_gb_s": nbytes / times["compress_s"] / 1e9,
+           "decompress_gb_s": nbytes / times["decompress_s"] / 1e9,
+           "max_err_over_scale": worst, "cpu_equal_checked": same}
+    say(f"    compress {times['compress_s']:.4f} s ({rec['compress_gb_s']:.2f} "
+        f"GB/s of gradient), decompress {times['decompress_s']:.4f} s "
+        f"({rec['decompress_gb_s']:.2f} GB/s); max |dequant - g| / scale "
+        f"{worst:.6f} (gate 0.5 + a rounding); q and scale equal to a CPU "
+        f"run at 3 leaves: {same} (reading)")
+    del grads, residual, qs, ss, rs, back, leaves
+    release()
+    return rec, failures
+
+
+def xor_block(rank: int) -> torch.Tensor:
+    """Rank ``rank``'s (XOR_M, 128) int32 block, from a seed, on the card."""
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 180 + rank)
+    return torch.randint(-2**31, 2**31 - 1, (XOR_M, 128), generator=gen,
+                         dtype=torch.int32, device=DEVICE)
+
+
+def psum_leaf(rank: int) -> torch.Tensor:
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 190 + rank)
+    return torch.randn(PSUM_SHAPE, generator=gen, device=DEVICE)
+
+
+def phase18_rank(rank: int, store: str, out: str) -> None:
+    """One rank of (d), a spawned process with its own CUDA context: the
+    butterfly XOR all-reduce of its block (gloo exchange through host
+    buffers, each combine through the CUDA XOR kernel), then the two-level
+    sum over a 2 x 2 grouping."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, XOR_RANKS),
+                            rank=rank, world_size=XOR_RANKS,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        x = xor_block(rank)
+        plain = {"calls": 0}
+        plain_fn = ref.xor_reduce
+
+        def counted(*a, **kw):
+            plain["calls"] += 1
+            return plain_fn(*a, **kw)
+
+        ref.xor_reduce = counted
+        torch.cuda.synchronize()
+        dist.barrier()
+        xp.xor_reduce.launches = 0       # the main path's count, from zero
+        rounds = []
+        y = collectives.xor_all_reduce(x, rounds=rounds)
+        launches = xp.xor_reduce.launches
+        ref.xor_reduce = plain_fn
+        digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()
+        inner, outer = collectives.grid_groups(2, 2)
+        leaves = [psum_leaf(r) for r in range(XOR_RANKS)]
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        got = collectives.hierarchical_psum(leaves[rank], inner, outer)
+        torch.cuda.synchronize()
+        psum_s = time.perf_counter() - t0
+        flat = leaves[0] + leaves[1] + leaves[2] + leaves[3]
+        rec = {"rank": rank, "launches": launches, "plain_calls": plain["calls"],
+               "rounds": rounds, "sha256": digest, "psum_s": psum_s,
+               "psum_max_err": (got - flat).abs().max().item(),
+               "psum_close": bool(torch.allclose(got, flat, rtol=1e-5,
+                                                 atol=1e-5))}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(rec))
+
+
+def phase18_collectives(root: Path) -> tuple:
+    """(d) the XOR all-reduce on its reference path: 4 ranks on the one
+    card, gloo carrying the exchange through host buffers, the CUDA XOR
+    kernel doing each combine; then the two-level sum."""
+    import multiprocessing as mp
+
+    say(f"  (d) xor_all_reduce over {XOR_RANKS} ranks (one process and CUDA "
+        f"context each) of ({XOR_M}, 128) int32 blocks; hierarchical_psum "
+        f"of a {PSUM_SHAPE} f32 leaf over a 2 x 2 grouping")
+    want = None
+    for r in range(XOR_RANKS):
+        b = xor_block(r).cpu().numpy()
+        want = b if want is None else np.bitwise_xor(want, b)
+    want_sha = hashlib.sha256(want.tobytes()).hexdigest()
+    del want, b
+    release()
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=phase18_rank,
+                         args=(r, str(root / "store"), str(root / f"rank{r}.json")))
+             for r in range(XOR_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 4 * RANK_TIMEOUT_S
+    for p in procs:
+        p.join(max(1.0, deadline - time.monotonic()))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join()
+    wall = time.perf_counter() - t0
+    failures, held = [], True
+    if any(p.exitcode != 0 for p in procs):
+        return {"exitcodes": [p.exitcode for p in procs]}, [
+            f"(d) ranks exited with {[p.exitcode for p in procs]}"]
+    recs = [json.loads((root / f"rank{r}.json").read_text())
+            for r in range(XOR_RANKS)]
+    for rec in recs:
+        r = rec["rank"]
+        per = ", ".join(f"exchange {x['exchange_s']:.4f} s + kernel "
+                        f"{x['combine_s']:.4f} s" for x in rec["rounds"])
+        say(f"    rank {r}: rounds [{per}]; xor_reduce launches "
+            f"{rec['launches']}, plain XOR calls {rec['plain_calls']}; "
+            f"psum {rec['psum_s']:.4f} s, max |psum - flat sum| "
+            f"{rec['psum_max_err']:.3e}")
+        if rec["sha256"] != want_sha:
+            held = False
+            failures.append(f"(d) rank {r} does not hold the 4-way XOR")
+        if rec["launches"] != 2 or rec["plain_calls"]:
+            failures.append(f"(d) rank {r}: {rec['launches']} XOR kernel "
+                            f"launches (want 2) and {rec['plain_calls']} plain "
+                            "calls (want 0)")
+        if not rec["psum_close"]:
+            failures.append(f"(d) rank {r}: hierarchical_psum differs from "
+                            "the flat sum")
+    say(f"    every rank holds the numpy XOR of all four blocks: "
+        f"{held} (sha256 {want_sha[:16]}..); "
+        f"ranks' wall {wall:.2f} s with start-up")
+    return {"ranks": recs, "wall_s": wall, "xor_sha256": want_sha}, failures
+
+
+def phase18() -> dict:
+    """The task runtime, error-feedback compression and the collectives on
+    the card; every gate checked after every part has run."""
+    say("== phase 18: the task runtime, error-feedback compression and the "
+        "XOR all-reduce on the card")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_p18_"))
+    failures = []
+    out = {}
+    try:
+        for key, part in (("tasks", phase18_tasks), ("step", phase18_step),
+                          ("compression", lambda _: phase18_compression()),
+                          ("collectives", phase18_collectives)):
+            t1 = time.perf_counter()
+            out[key], fails = part(root)
+            out[key]["seconds"] = time.perf_counter() - t1
+            say(f"    ({key}: {out[key]['seconds']:.1f} s)")
+            failures += fails
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    say(f"  phase 18 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 18 gates failed:\n  " + "\n  ".join(failures))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -3766,7 +4326,8 @@ def main() -> int:
 
     say("== phase 5: int8 pool through the int8 kernel")
     outs5, stats, wall, iters, n_layers = serve(
-        ServeConfig(spec_k=3, kv_codec="int8", **SERVE), prompts)
+        ServeConfig(spec_k=3, kv_codec="int8", **SERVE),
+        prompts[:INT8_REQUESTS], INT8_MAX_NEW)
     launches = pa.paged_attention_quant.launches
     report_serve("int8 spec_k=3", outs5, stats, wall, iters, launches, n_layers)
     if pa.paged_attention.launches:
@@ -3775,8 +4336,9 @@ def main() -> int:
     kernels["paged_attention_quant"]["launches_per_token_iteration"] = (
         launches / iters)
     same = sum(a == b for o5, o2 in zip(outs5, outs2) for a, b in zip(o5, o2))
-    total = sum(len(o) for o in outs2)
-    say(f"  int8 token agreement with phase 2: {same}/{total} = "
+    total = sum(min(len(o5), len(o2)) for o5, o2 in zip(outs5, outs2))
+    say(f"  int8 token agreement with phase 2 over their common tokens: "
+        f"{same}/{total} = "
         f"{same / total:.4f} (reported, not gated)")
 
     del outs2, outs3, outs5
@@ -3878,6 +4440,15 @@ def main() -> int:
     kernels["paged_attention"]["fleet"]["elastic"] = {
         k: v for k, v in p17["elastic"].items()
         if k not in ("stats", "worker_kernels")}
+
+    p18 = phase18()
+    kernels["xor_reduce"]["launches_phase18"] = [
+        r["launches"] for r in p18["collectives"]["ranks"]]
+    kernels["xor_reduce"]["phase18"] = {
+        "rounds": {r["rank"]: r["rounds"] for r in p18["collectives"]["ranks"]},
+        "psum_s": [r["psum_s"] for r in p18["collectives"]["ranks"]],
+        "tasks": p18["tasks"], "step": p18["step"],
+        "compression": p18["compression"], "seconds": p18["seconds"]}
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

@@ -1,10 +1,11 @@
 """The paper's primary contribution: DEEP-ER I/O + resiliency stack.
 
-``core/tasks.py`` and ``core/offload.py`` wait for a later slice of
-ROADMAP.md."""
+``core/offload.py`` (the Cluster/Booster split over mesh sub-grids) waits
+for a later slice of ROADMAP.md."""
 
 from repro_torch.core.scr import SCRManager, Strategy, CheckpointRecord, FabricSpec, EXTOLL, TPU_ICI
 from repro_torch.core.nam import NAMDevice, make_nam
+from repro_torch.core.tasks import TaskRuntime, TaskError, TaskStats
 from repro_torch.core import parity
 
 __all__ = [
@@ -16,5 +17,8 @@ __all__ = [
     "TPU_ICI",
     "NAMDevice",
     "make_nam",
+    "TaskRuntime",
+    "TaskError",
+    "TaskStats",
     "parity",
 ]

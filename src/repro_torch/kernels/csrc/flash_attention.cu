@@ -101,6 +101,12 @@
 //   reduce over the warp with shuffles; for p.V each lane owns columns lane,
 //   lane+32, ... of the 8 rows' accumulators and receives p_ij from lane j by
 //   shuffle.  Bound by those f32 operations, far from the tensor cores.
+//
+// * wide heads (D or Dv above 256), both dtypes: the float32 route's layout
+//   with every contraction streamed in 64-column boxes and the output
+//   columns split over blocks of 256 (the flash_wide_* kernels below); a
+//   bfloat16 call runs there as f32 tiles, p and dS rounded to bf16 where
+//   they enter a product.  Any multiple of 8 runs; the wrapper pads the rest.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -122,8 +128,10 @@ constexpr float kNegInf = -0.7f * 3.40282347e38f;   // NEG_INF of the reference
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -535,6 +543,408 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int col = lane + 32 * c;
       if (col < d) store(dk + off * d + col, dk_acc[i][c] * scale);
       if (col < d_v) store(dv + off * d_v + col, dv_acc[i][c]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------- //
+// wide heads: D or Dv above 256, both dtypes, on the CUDA cores
+// ---------------------------------------------------------------------- //
+//
+// Above 256 columns a block can hold neither its rows' accumulators in
+// registers nor a whole row tile in shared memory (a 64-row bf16 Q tile of D
+// 576 is 72 KB, and each K stage as much).  These kernels keep the float32
+// route's layout (32 rows a block, 8 a warp, a lane a key or a query) and
+// change two things:
+// - every contraction (Q K^T over D, dO V^T over Dv) streams through shared
+//   memory in boxes of kBoxW columns, its sum accumulating in f32 registers
+//   box after box in a fixed order;
+// - the output columns are split over blocks, kSliceW a block (dK's and
+//   dV's slices are blocks of one grid).  Every block of a row tile
+//   recomputes the same scores in the same order, so the bits stay fixed;
+//   dO V^T runs over all of Dv inside each block; no sum crosses blocks and
+//   nothing is atomic.
+// bfloat16 inputs are read as f32 (products of bf16 values are exact in
+// f32, as on the tensor cores) and p and dS are rounded to bf16 where they
+// enter a product, as the tensor-core route rounds them (the reference's
+// p.astype(v.dtype)); the softmax sum takes the unrounded p.
+
+constexpr int kBoxW = 64;                 // columns of a streamed box
+constexpr int kSliceW = 256;              // output columns a block owns
+constexpr int kSliceNC = kSliceW / 32;    // 32-column groups of a slice
+
+// x as it enters a product in T's precision
+__device__ __forceinline__ float as_operand(float x, const float*) { return x; }
+__device__ __forceinline__ float as_operand(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16(x));
+}
+
+// Stage columns [c0, c0 + w) of rows [r0, r0 + kTile) of one head of a (B,
+// T, H, ld) tensor into shared memory as f32, zero past row t: row-major with
+// row stride `stride`, or transposed with the padded stride (dst[c * kPad +
+// r]).
+template <typename T, bool kTransposed>
+__device__ __forceinline__ void stage_box(float* dst, int stride, const T* src, int b,
+                                         int r0, int t, int h, int heads, int ld,
+                                         int c0, int w) {
+  for (int i = threadIdx.x; i < kTile * w; i += kThreads) {
+    const int r = i / w;
+    const int c = i - r * w;
+    const int row = r0 + r;
+    float x = 0.f;
+    if (row < t) {
+      x = to_float(src[((static_cast<size_t>(b) * t + row) * heads + h) * ld + c0 + c]);
+    }
+    if (kTransposed) {
+      dst[c * kPad + r] = x;
+    } else {
+      dst[r * stride + c] = x;
+    }
+  }
+}
+
+// acc[i] += x_rows[i * stride, + w) . yt[:w, lane], w a multiple of 4
+__device__ __forceinline__ void box_dots(float (&acc)[kRows], const float* x_rows,
+                                         int stride, const float* yt, int w, int lane) {
+  for (int c = 0; c < w; c += 4) {
+    const float y0 = yt[(c + 0) * kPad + lane];
+    const float y1 = yt[(c + 1) * kPad + lane];
+    const float y2 = yt[(c + 2) * kPad + lane];
+    const float y3 = yt[(c + 3) * kPad + lane];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(x_rows + i * stride + c);
+      acc[i] += x.x * y0 + x.y * y1 + x.z * y2 + x.w * y3;
+    }
+  }
+}
+
+// acc[i] += x_rows(i) . y(lane) over all `width` columns, box by box: rows
+// r0x.. of head hx of x, rows r0y.. of head hy of y, both (B, T, H, width)
+template <typename T>
+__device__ __forceinline__ void wide_dots(float (&acc)[kRows], float* x_s, float* yt_s,
+                                          const T* x, int r0x, int tx, int hx, int hxn,
+                                          const T* y, int r0y, int ty, int hy, int hyn,
+                                          int b, int width, int warp, int lane) {
+  for (int c0 = 0; c0 < width; c0 += kBoxW) {
+    const int w = min(kBoxW, width - c0);
+    __syncthreads();   // the last box's readers are done
+    stage_box<T, false>(x_s, kBoxW, x, b, r0x, tx, hx, hxn, width, c0, w);
+    stage_box<T, true>(yt_s, 0, y, b, r0y, ty, hy, hyn, width, c0, w);
+    __syncthreads();
+    box_dots(acc, x_s + warp * kRows * kBoxW, kBoxW, yt_s, w, lane);
+  }
+}
+
+// the wide kernels' shared memory: a row box, a transposed box and a slice
+constexpr size_t kWideSmem = sizeof(float) * (kTile * kBoxW + kBoxW * kPad + kTile * kSliceW);
+
+// grid y: head y / slices, slice y % slices of the Dv output columns
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                      int tq, int tk, int hq, int hkv, int d, int dv, float scale,
+                      int causal, int prefix_len, int slices) {
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y / slices;
+  const int b = blockIdx.z;
+  const int c_lo = (blockIdx.y % slices) * kSliceW;
+  const int c_n = min(kSliceW, dv - c_lo);
+  const int hk = h / (hq / hkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q_offset = tk - tq;
+
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                   // (kTile, kBoxW) a box of query rows
+  float* yt_s = x_s + kTile * kBoxW;   // (kBoxW, kPad) a box of keys, transposed
+  float* v_s = yt_s + kBoxW * kPad;    // (kTile, kSliceW) the slice of value rows
+
+  float m[kRows], l[kRows], acc[kRows][kSliceNC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int k_end =
+      causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_offset)) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float s[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i] = 0.f;
+    wide_dots<T>(s, x_s, yt_s, q, q0, tq, h, hq, k, k0, tk, hk, hkv, b, d, warp, lane);
+    // the boxes' syncs leave the last tile's p.V readers of v_s done
+    stage_box<T, false>(v_s, kSliceW, v, b, k0, tk, hk, hkv, dv, c_lo, c_n);
+    __syncthreads();
+
+    const int k_pos = k0 + lane;
+    float p[kRows], corr[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int q_pos = q0 + warp * kRows + i + q_offset;
+      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos || k_pos < prefix_len);
+      const float si = valid ? s[i] * scale : kNegInf;
+      const float m_new = fmaxf(m[i], warp_max(si));
+      const float e = expf(si - m_new);
+      corr[i] = expf(m[i] - m_new);
+      l[i] = l[i] * corr[i] + warp_sum(e);
+      m[i] = m_new;
+      p[i] = as_operand(e, static_cast<const T*>(nullptr));
+    }
+
+    float pv[kRows][kSliceNC];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) pv[i][c] = 0.f;
+    }
+    for (int j = 0; j < kTile; ++j) {
+      float vj[kSliceNC];
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) {
+        const int col = lane + 32 * c;
+        vj[c] = col < c_n ? v_s[j * kSliceW + col] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float pij = __shfl_sync(kFull, p[i], j);
+#pragma unroll
+        for (int c = 0; c < kSliceNC; ++c) pv[i][c] += pij * vj[c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) acc[i][c] = acc[i][c] * corr[i] + pv[i][c];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + warp * kRows + i;
+    if (row >= tq) continue;
+    const float inv = 1.f / fmaxf(l[i], 1e-30f);
+    T* orow = o + ((static_cast<size_t>(b) * tq + row) * hq + h) * dv + c_lo;
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < c_n) store(orow + col, acc[i][c] * inv);
+    }
+    if (lane == 0 && c_lo == 0) {
+      lse[(static_cast<size_t>(b) * hq + h) * tq + row] = m[i] + logf(l[i]);
+    }
+  }
+}
+
+// dQ, grid y: head y / slices, slice y % slices of dQ's D columns
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                     const T* __restrict__ v, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dq, int tq, int tk, int hq, int hkv, int d, int dv,
+                     float scale, int causal, int prefix_len, int slices) {
+  const int q0 = blockIdx.x * kTile;
+  const int h = blockIdx.y / slices;
+  const int b = blockIdx.z;
+  const int c_lo = (blockIdx.y % slices) * kSliceW;
+  const int c_n = min(kSliceW, d - c_lo);
+  const int hk = h / (hq / hkv);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q_offset = tk - tq;
+
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                   // (kTile, kBoxW) a box of q or dO rows
+  float* yt_s = x_s + kTile * kBoxW;   // (kBoxW, kPad) a box of k or v, transposed
+  float* k_s = yt_s + kBoxW * kPad;    // (kTile, kSliceW) the slice of key rows
+
+  float row_lse[kRows], row_delta[kRows], acc[kRows][kSliceNC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = min(q0 + warp * kRows + i, tq - 1);
+    row_lse[i] = lse[(static_cast<size_t>(b) * hq + h) * tq + row];
+    row_delta[i] = delta[(static_cast<size_t>(b) * hq + h) * tq + row];
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int k_end =
+      causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_offset)) : tk;
+  for (int k0 = 0; k0 < k_end; k0 += kTile) {
+    float s[kRows], dp[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
+    wide_dots<T>(s, x_s, yt_s, q, q0, tq, h, hq, k, k0, tk, hk, hkv, b, d, warp, lane);
+    wide_dots<T>(dp, x_s, yt_s, dout, q0, tq, h, hq, v, k0, tk, hk, hkv, b, dv, warp,
+                 lane);
+    stage_box<T, false>(k_s, kSliceW, k, b, k0, tk, hk, hkv, d, c_lo, c_n);
+    __syncthreads();
+
+    const int k_pos = k0 + lane;
+    float ds[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int q_pos = q0 + warp * kRows + i + q_offset;
+      const bool valid = k_pos < tk && (!causal || k_pos <= q_pos || k_pos < prefix_len);
+      const float p = valid ? expf(s[i] * scale - row_lse[i]) : 0.f;
+      ds[i] = as_operand(p * (dp[i] - row_delta[i]), static_cast<const T*>(nullptr));
+    }
+
+    float part[kRows][kSliceNC];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) part[i][c] = 0.f;
+    }
+    for (int j = 0; j < kTile; ++j) {
+      float kj[kSliceNC];
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) {
+        const int col = lane + 32 * c;
+        kj[c] = col < c_n ? k_s[j * kSliceW + col] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const float dsij = __shfl_sync(kFull, ds[i], j);
+#pragma unroll
+        for (int c = 0; c < kSliceNC; ++c) part[i][c] += dsij * kj[c];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int c = 0; c < kSliceNC; ++c) acc[i][c] += part[i][c];
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = q0 + warp * kRows + i;
+    if (row >= tq) continue;
+    T* out = dq + ((static_cast<size_t>(b) * tq + row) * hq + h) * d + c_lo;
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < c_n) store(out + col, acc[i][c] * scale);
+    }
+  }
+}
+
+// dK and dV, grid y: kv head y / slices, slice y % slices (slices =
+// dk_slices + dv_slices): the first dk_slices own dK's D columns, the rest
+// dV's Dv columns
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+flash_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int hq,
+                       int hkv, int d, int d_v, float scale, int causal, int prefix_len,
+                       int dk_slices, int dv_slices) {
+  const int k0 = blockIdx.x * kTile;
+  const int slices = dk_slices + dv_slices;
+  const int hk = blockIdx.y / slices;
+  const int b = blockIdx.z;
+  const int sl = blockIdx.y % slices;
+  const bool is_dk = sl < dk_slices;
+  const int width = is_dk ? d : d_v;
+  const int c_lo = (is_dk ? sl : sl - dk_slices) * kSliceW;
+  const int c_n = min(kSliceW, width - c_lo);
+  const int g = hq / hkv;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int q_offset = tk - tq;
+
+  extern __shared__ __align__(16) float smem[];
+  float* x_s = smem;                   // (kTile, kBoxW) a box of k or v rows
+  float* yt_s = x_s + kTile * kBoxW;   // (kBoxW, kPad) a box of q or dO, transposed
+  float* o_s = yt_s + kBoxW * kPad;    // (kTile, kSliceW) the slice of q (dK) or dO (dV)
+
+  float acc[kRows][kSliceNC];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) acc[i][c] = 0.f;
+  }
+
+  const int q_begin =
+      causal && k0 >= prefix_len ? max(0, k0 - q_offset) / kTile * kTile : 0;
+  const T* slice_src = is_dk ? q : dout;
+  for (int hh = 0; hh < g; ++hh) {
+    const int h = hk * g + hh;
+    for (int qt0 = q_begin; qt0 < tq; qt0 += kTile) {
+      const int q_row = qt0 + lane;
+      const int q_pos = q_row + q_offset;
+      const size_t stat = (static_cast<size_t>(b) * hq + h) * tq + min(q_row, tq - 1);
+      const float my_lse = lse[stat];
+      const float my_delta = delta[stat];
+
+      float s[kRows], dp[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) s[i] = dp[i] = 0.f;
+      wide_dots<T>(s, x_s, yt_s, k, k0, tk, hk, hkv, q, qt0, tq, h, hq, b, d, warp, lane);
+      if (is_dk) {   // dV needs p alone
+        wide_dots<T>(dp, x_s, yt_s, v, k0, tk, hk, hkv, dout, qt0, tq, h, hq, b, d_v,
+                     warp, lane);
+      }
+      stage_box<T, false>(o_s, kSliceW, slice_src, b, qt0, tq, h, hq, width, c_lo, c_n);
+      __syncthreads();
+
+      float wgt[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        const int k_pos = k0 + warp * kRows + i;
+        const bool valid = q_row < tq && k_pos < tk &&
+                           (!causal || k_pos <= q_pos || k_pos < prefix_len);
+        const float p = valid ? expf(s[i] * scale - my_lse) : 0.f;
+        wgt[i] = as_operand(is_dk ? p * (dp[i] - my_delta) : p,
+                            static_cast<const T*>(nullptr));
+      }
+
+      float part[kRows][kSliceNC];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int c = 0; c < kSliceNC; ++c) part[i][c] = 0.f;
+      }
+      for (int j = 0; j < kTile; ++j) {
+        float xj[kSliceNC];
+#pragma unroll
+        for (int c = 0; c < kSliceNC; ++c) {
+          const int col = lane + 32 * c;
+          xj[c] = col < c_n ? o_s[j * kSliceW + col] : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const float wij = __shfl_sync(kFull, wgt[i], j);
+#pragma unroll
+          for (int c = 0; c < kSliceNC; ++c) part[i][c] += wij * xj[c];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+        for (int c = 0; c < kSliceNC; ++c) acc[i][c] += part[i][c];
+      }
+    }
+  }
+
+  T* out = is_dk ? dk : dv;
+  const float mul = is_dk ? scale : 1.f;
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int row = k0 + warp * kRows + i;
+    if (row >= tk) continue;
+    T* orow = out + ((static_cast<size_t>(b) * tk + row) * hkv + hk) * width + c_lo;
+#pragma unroll
+    for (int c = 0; c < kSliceNC; ++c) {
+      const int col = lane + 32 * c;
+      if (col < c_n) store(orow + col, acc[i][c] * mul);
     }
   }
 }
@@ -1458,9 +1868,13 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
 bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int dv, int causal,
                int prefix_len) {
   return b < 1 || tq < 1 || tk < 1 || (causal && tk < tq) || hkv < 1 || hq % hkv != 0 ||
-         d % 8 != 0 || d < 8 || d > 256 || dv % 8 != 0 || dv < 8 || dv > 256 ||
-         prefix_len < 0;
+         d % 8 != 0 || d < 8 || dv % 8 != 0 || dv < 8 || prefix_len < 0;
 }
+
+// heads past 256 columns run the wide kernels, on either dtype
+bool wide(int d, int dv) { return d > kSliceW || dv > kSliceW; }
+
+int slices_of(int width) { return (width + kSliceW - 1) / kSliceW; }
 
 // opt in to more than 48 KB of dynamic shared memory where needed
 template <typename K>
@@ -1529,6 +1943,65 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
   kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
       qt, kt, vt, got, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), tq, tk,
       hq, hkv, d, d_v, scale, causal, prefix_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int fwd_wide(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+             int tq, int tk, int hq, int hkv, int d, int dv, float scale, int causal,
+             int prefix_len, cudaStream_t stream) {
+  const int slices = slices_of(dv);
+  if (static_cast<long long>(hq) * slices > 65535 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = flash_wide_fwd_kernel<T>;
+  const int err = allow_smem(kernel, kWideSmem);
+  if (err) return err;
+  const dim3 grid((tq + kTile - 1) / kTile, hq * slices, b);
+  kernel<<<grid, kThreads, kWideSmem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len, slices);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int bwd_wide(const void* q, const void* k, const void* v, const void* o,
+             const void* dout, const float* lse, float* delta, void* dq, void* dk,
+             void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v,
+             float scale, int causal, int prefix_len, cudaStream_t stream) {
+  const int dq_slices = slices_of(d);
+  const int kv_slices = slices_of(d) + slices_of(d_v);
+  if (static_cast<long long>(hq) * dq_slices > 65535 ||
+      static_cast<long long>(hkv) * kv_slices > 65535 || b > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* got = static_cast<const T*>(dout);
+  const long long rows = static_cast<long long>(b) * tq * hq;
+  flash_bwd_delta_kernel<T><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
+                              kThreads, 0, stream>>>(static_cast<const T*>(o), got,
+                                                     delta, b, tq, hq, d_v);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+
+  auto dq_kernel = flash_wide_dq_kernel<T>;
+  err = allow_smem(dq_kernel, kWideSmem);
+  if (err) return err;
+  dq_kernel<<<dim3((tq + kTile - 1) / kTile, hq * dq_slices, b), kThreads, kWideSmem,
+              stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq,
+                        hkv, d, d_v, scale, causal, prefix_len, dq_slices);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+
+  auto kv_kernel = flash_wide_dkdv_kernel<T>;
+  err = allow_smem(kv_kernel, kWideSmem);
+  if (err) return err;
+  kv_kernel<<<dim3((tk + kTile - 1) / kTile, hkv * kv_slices, b), kThreads, kWideSmem,
+              stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dk),
+                        static_cast<T*>(dv), tq, tk, hq, hkv, d, d_v, scale, causal,
+                        prefix_len, slices_of(d), slices_of(d_v));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1707,7 +2180,8 @@ int with_head_dims(int d, int dv, F&& f) {
 
 // dtype codes: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core
 // route, at the instantiation with_head_dims picks); both take any d and dv
-// that are multiples of 8 up to 256.  q, k, v, o and the gradients share the
+// that are multiples of 8 up to 256, and past 256 (either of them) both run
+// the wide kernels on the CUDA cores.  q, k, v, o and the gradients share the
 // dtype, lse and delta are f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
 // v, dv (B, Tk, Hkv, dv), o, dO (B, Tq, Hq, dv); the bfloat16 route's are
 // 16-byte aligned.  prefix_len >= 0: with causal, the first prefix_len keys
@@ -1722,6 +2196,13 @@ extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (wide(d, dv)) {
+    return dtype == 1
+        ? fwd_wide<__nv_bfloat16>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale,
+                                  causal, prefix_len, s)
+        : fwd_wide<float>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal,
+                          prefix_len, s);
+  }
   if (dtype == 1) {
     return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
       return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
@@ -1748,6 +2229,13 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
+  if (wide(d, d_v)) {
+    return dtype == 1
+        ? bwd_wide<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq,
+                                  hkv, d, d_v, scale, causal, prefix_len, s)
+        : bwd_wide<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d,
+                          d_v, scale, causal, prefix_len, s);
+  }
   if (dtype == 1) {
     return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
       return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
@@ -1764,8 +2252,8 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
 }
 
 // The head dims (D, DV) the bfloat16 route runs a (d, dv) call at, the
-// instantiation with_head_dims picks, as D * 65536 + DV; -1 for a pair the
-// route does not take.  d and dv are the widths the wrapper passes (multiples
+// instantiation with_head_dims picks, as D * 65536 + DV; -1 for a pair no
+// tensor-core instantiation takes (past 256: the wide kernels).  d and dv are the widths the wrapper passes (multiples
 // of 8).
 extern "C" int repro_flash_bf16_dims(int d, int dv) {
   int dims = -1;

@@ -49,6 +49,9 @@
 //   rounds it), int8 pages keep p in f32 and p V on the CUDA cores.
 // - g query heads go in passes of up to kMaxGroup over the same staged
 //   rows; loops over heads stop at g, so no work goes to padding.
+// - Heads wider than 256 columns keep the spans and the combine and stream
+//   D through shared memory in 64-column boxes (paged_wide_kernel); any
+//   multiple of 8 runs, and the wrapper pads the rest.
 //
 // Combine: two CUDA launches per call (one when no row can have two
 // spans).  Each span writes (m_s, l_s, acc_s) in f32 to a workspace (B,
@@ -230,6 +233,7 @@ __device__ __forceinline__ void smem2(const int8_t* p, float* o) {
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_float(int8_t x) { return static_cast<float>(x); }
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
@@ -315,8 +319,9 @@ __device__ __forceinline__ int spans_of(const Args& a, int b) {
 // past the row's last span is masked once the length is in.  Thread s
 // then puts the weight e^(m_s - m) and l_s e^(m_s - m) of span s in shared
 // memory, and every thread sums l and its columns' acc in the span order
-// 0, 1, ...  The block has kCombineThreads threads; ws holds 2 * kChunk
-// floats.
+// 0, 1, ...  The block has kCombineThreads threads, kCols columns each in
+// a pass; a head wider than a pass takes more, each over all its spans
+// again.  ws holds 2 * kChunk floats.
 template <typename TQ>
 __device__ __forceinline__ void combine_head(const Args& a, size_t head, int b,
                                              float* ws) {
@@ -328,63 +333,65 @@ __device__ __forceinline__ void combine_head(const Args& a, size_t head, int b,
   const float* pt = a.part + head * a.max_splits * d;
   float* w_s = ws;
   float* lw_s = ws + kChunk;
-  float m = kNegInf, l = 0.f, acc[kCols] = {};
-  int n = a.max_splits;   // the spans the workspace holds, until the length is in
-  for (int s0 = 0; s0 < n; s0 += kChunk) {
-    const int cap = min(kChunk, a.max_splits - s0);
-    float x[kCols][kChunk];
+  for (int c_base = 0; c_base < d; c_base += kCols * kBlock) {
+    float m = kNegInf, l = 0.f, acc[kCols] = {};
+    int n = a.max_splits;   // the spans the workspace holds, until the length is in
+    for (int s0 = 0; s0 < n; s0 += kChunk) {
+      const int cap = min(kChunk, a.max_splits - s0);
+      float x[kCols][kChunk];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = c_base + tid + c * kBlock;
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          x[c][i] = i < cap && col < d
+              ? __ldcg(pt + static_cast<size_t>(s0 + i) * d + col) : 0.f;
+        }
+      }
+      float mine_m = kNegInf, mine_l = 0.f;
+      if (tid < cap) {
+        mine_m = __ldcg(st + 2 * (s0 + tid));
+        mine_l = __ldcg(st + 2 * (s0 + tid) + 1);
+      }
+      if (s0 == 0) {
+        float ms[kChunk / 32];
+#pragma unroll
+        for (int i = 0; i < kChunk / 32; ++i) {
+          const int s = tid % 32 + 32 * i;
+          ms[i] = s < a.max_splits ? __ldcg(st + 2 * s) : kNegInf;
+        }
+        n = spans_of(a, b);
+        if (n == 1) return;   // the span kernel wrote this row's output
+#pragma unroll
+        for (int i = 0; i < kChunk / 32; ++i) {
+          if (tid % 32 + 32 * i < n) m = fmaxf(m, ms[i]);
+        }
+        for (int s = tid % 32 + kChunk; s < n; s += 32) m = fmaxf(m, __ldcg(st + 2 * s));
+        m = warp_max(m);
+      }
+      const int ns = min(kChunk, n - s0);
+      __syncthreads();   // the last chunk's readers of ws are done
+      if (tid < ns) {
+        const float w = expf(mine_m - m);
+        w_s[tid] = w;
+        lw_s[tid] = mine_l * w;
+      }
+      __syncthreads();
+      for (int i = 0; i < ns; ++i) l += lw_s[i];
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+#pragma unroll
+        for (int i = 0; i < kChunk; ++i) {
+          if (i < ns) acc[c] += x[c][i] * w_s[i];
+        }
+      }
+    }
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      const int col = tid + c * kBlock;
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        x[c][i] = i < cap && col < d
-            ? __ldcg(pt + static_cast<size_t>(s0 + i) * d + col) : 0.f;
+      const int col = c_base + tid + c * kBlock;
+      if (col < d) {
+        store(static_cast<TQ*>(a.out) + head * d + col, acc[c] / fmaxf(l, 1e-30f));
       }
-    }
-    float mine_m = kNegInf, mine_l = 0.f;
-    if (tid < cap) {
-      mine_m = __ldcg(st + 2 * (s0 + tid));
-      mine_l = __ldcg(st + 2 * (s0 + tid) + 1);
-    }
-    if (s0 == 0) {
-      float ms[kChunk / 32];
-#pragma unroll
-      for (int i = 0; i < kChunk / 32; ++i) {
-        const int s = tid % 32 + 32 * i;
-        ms[i] = s < a.max_splits ? __ldcg(st + 2 * s) : kNegInf;
-      }
-      n = spans_of(a, b);
-      if (n == 1) return;   // the span kernel wrote this row's output
-#pragma unroll
-      for (int i = 0; i < kChunk / 32; ++i) {
-        if (tid % 32 + 32 * i < n) m = fmaxf(m, ms[i]);
-      }
-      for (int s = tid % 32 + kChunk; s < n; s += 32) m = fmaxf(m, __ldcg(st + 2 * s));
-      m = warp_max(m);
-    }
-    const int ns = min(kChunk, n - s0);
-    __syncthreads();   // the last chunk's readers of ws are done
-    if (tid < ns) {
-      const float w = expf(mine_m - m);
-      w_s[tid] = w;
-      lw_s[tid] = mine_l * w;
-    }
-    __syncthreads();
-    for (int i = 0; i < ns; ++i) l += lw_s[i];
-#pragma unroll
-    for (int c = 0; c < kCols; ++c) {
-#pragma unroll
-      for (int i = 0; i < kChunk; ++i) {
-        if (i < ns) acc[c] += x[c][i] * w_s[i];
-      }
-    }
-  }
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int col = tid + c * kBlock;
-    if (col < d) {
-      store(static_cast<TQ*>(a.out) + head * d + col, acc[c] / fmaxf(l, 1e-30f));
     }
   }
 }
@@ -826,6 +833,126 @@ paged_split_kernel(const Args a) {
   }
 }
 
+// Heads wider than 256 columns.  The staged span outgrows shared memory
+// there (64 f32 key and value rows of D 576 are 297 KB), so such a head keeps
+// the split, the spans, the workspace and the combine, and streams D
+// through shared memory in boxes of kWideBox columns as f32 (int8 rows
+// unscaled): thread (position, head set) adds each box's part of its
+// scores to their slots in shared memory (no other thread writes them);
+// span_softmax takes them as one part; then thread (column, head set) sums
+// p V box after box, for every head of a pass of up to kMaxGroup.  Each sum
+// runs in one thread in an order the source fixes, so the bits stay
+// fixed.
+// A simple kernel, not a fast one: no configuration has such heads.
+constexpr int kWideBox = 64;
+constexpr int kWideStride = kWideBox + 1;    // odd: a column's rows in distinct banks
+constexpr int kHeadSets = kThreads / kSplit;
+static_assert(kThreads == kHeadSets * kWideBox, "a thread per (column, head set)");
+
+template <typename TQ, typename TKV, bool kQuant>
+__global__ void __launch_bounds__(kThreads, 1)
+paged_wide_kernel(const Args a) {
+  constexpr int kG = kMaxGroup;
+  const int s = blockIdx.x % a.max_splits;
+  const int bh = blockIdx.x / a.max_splits;
+  const int h = bh % a.hkv;
+  const int b = bh / a.hkv;
+  const int d = a.d;
+  const int g = a.hq / a.hkv;
+  const int tid = threadIdx.x;
+  const int r0 = s * kSplit;
+  const int* tb = a.table + static_cast<size_t>(b) * a.np;
+  long long prow = 0;
+  if (tid < kSplit && r0 + tid < a.np * a.page) {
+    prow = static_cast<long long>(pool_row(tb, r0 + tid, h, a));
+  }
+  const int n_spans = spans_of(a, b);
+  if (s >= n_spans) return;
+  const int len = max(0, min(a.lengths[b], a.np * a.page));
+
+  __shared__ __align__(16) float x_s[kSplit * kWideStride];   // a box of K or V rows
+  __shared__ __align__(16) float q_s[kG * kWideBox];          // a box of the pass's q rows
+  __shared__ __align__(16) float sc_s[kG * kSplit];           // scores, then p
+  __shared__ float ml_s[2 * kG];
+  __shared__ float ksc_s[kSplit], vsc_s[kSplit];
+  __shared__ long long rows_s[kSplit];
+  Span sp{};
+  sp.ksc = ksc_s;
+  sp.vsc = vsc_s;
+  sp.sc = sc_s;
+  sp.ml = ml_s;
+  sp.head0 = static_cast<size_t>(b) * a.hq + static_cast<size_t>(h) * g;
+  sp.s = s;
+  sp.n_spans = n_spans;
+  sp.rows = max(0, min(kSplit, len - r0));
+  if (tid < sp.rows) {
+    rows_s[tid] = prow;
+    if (kQuant) {
+      ksc_s[tid] = a.ks[prow];
+      vsc_s[tid] = a.vs[prow];
+    }
+  }
+  const TQ* qb = static_cast<const TQ*>(a.q) + sp.head0 * d;
+  const TKV* kp = static_cast<const TKV*>(a.k);
+  const TKV* vp = static_cast<const TKV*>(a.v);
+  const int pos = tid % kSplit;     // scores: this thread's position
+  const int col = tid % kWideBox;   // p V: this thread's column of a box
+  const int set = tid / kSplit;     // heads set, set + kHeadSets, ... of a pass
+  for (int c0 = 0; c0 < g; c0 += kG) {
+    const int gc = min(kG, g - c0);
+    __syncthreads();   // the last pass's readers of sc_s are done
+    for (int j = set; j < gc; j += kHeadSets) sc_s[j * kSplit + pos] = 0.f;
+    for (int cb = 0; cb < d; cb += kWideBox) {
+      const int w = min(kWideBox, d - cb);
+      __syncthreads();   // the last box's readers are done
+      for (int i = tid; i < kSplit * w; i += kThreads) {
+        const int rr = i / w;
+        const int c = i - rr * w;
+        x_s[rr * kWideStride + c] =
+            rr < sp.rows ? to_float(kp[rows_s[rr] * d + cb + c]) : 0.f;
+      }
+      for (int i = tid; i < gc * w; i += kThreads) {
+        const int j = i / w;
+        const int c = i - j * w;
+        q_s[j * kWideBox + c] = to_float(qb[static_cast<size_t>(c0 + j) * d + cb + c]);
+      }
+      __syncthreads();
+      for (int j = set; j < gc; j += kHeadSets) {
+        float t = sc_s[j * kSplit + pos];
+        for (int c = 0; c < w; ++c) t += q_s[j * kWideBox + c] * x_s[pos * kWideStride + c];
+        sc_s[j * kSplit + pos] = t;
+      }
+    }
+    __syncthreads();
+    span_softmax<TKV, kQuant, kG, 1>(a, sp, gc, nullptr);
+    for (int cb = 0; cb < d; cb += kWideBox) {
+      const int w = min(kWideBox, d - cb);
+      __syncthreads();   // p is in sc_s; the last box's readers are done
+      for (int i = tid; i < kSplit * w; i += kThreads) {
+        const int rr = i / w;
+        const int c = i - rr * w;
+        x_s[rr * kWideStride + c] =
+            rr < sp.rows ? to_float(vp[rows_s[rr] * d + cb + c]) : 0.f;
+      }
+      __syncthreads();
+      if (col < w) {
+        for (int j = set; j < gc; j += kHeadSets) {
+          float t = 0.f;
+          for (int rr = 0; rr < sp.rows; ++rr) {
+            t += sc_s[j * kSplit + rr] * x_s[rr * kWideStride + col];
+          }
+          put<TQ, kG>(a, sp, c0, j, cb + col, t);
+        }
+      }
+    }
+    if (sp.n_spans > 1 && tid < gc) {
+      float* st = a.stats + ((sp.head0 + c0 + tid) * a.max_splits + sp.s) * 2;
+      st[0] = sp.ml[tid];
+      st[1] = sp.ml[kG + tid];
+    }
+  }
+}
+
 // the combine, a second launch: one block per (row, query head)
 template <typename TQ>
 __global__ void __launch_bounds__(kCombineThreads)
@@ -853,9 +980,20 @@ int launch_split(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// heads wider than 256 columns: the boxed span kernel, then the combine
+template <typename TQ, typename TKV, bool kQuant>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  paged_wide_kernel<TQ, TKV, kQuant><<<a.batch * a.hkv * a.max_splits, kThreads, 0,
+                                       stream>>>(a);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || a.max_splits == 1) return static_cast<int>(err);
+  paged_combine_kernel<TQ><<<a.batch * a.hq, kCombineThreads, 0, stream>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename TQ, typename TKV, bool kQuant>
 int launch(Args a, void* workspace, int b, void* stream) {
-  if (b < 1 || a.hkv < 1 || a.hq % a.hkv != 0 || a.d % 8 != 0 || a.d > 256 ||
+  if (b < 1 || a.hkv < 1 || a.hq % a.hkv != 0 || a.d % 8 != 0 || a.d < 8 ||
       a.n < 1 || a.page < 1 || a.np < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -872,6 +1010,7 @@ int launch(Args a, void* workspace, int b, void* stream) {
   a.stats = a.part + static_cast<size_t>(b) * a.hq * a.max_splits * a.d;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   a.batch = b;
+  if (a.d > 256) return launch_wide<TQ, TKV, kQuant>(a, s);
   const int g = a.hq / a.hkv;
   if (g == 1) return launch_split<TQ, TKV, kQuant, 1>(a, s);
   if (g <= 4) return launch_split<TQ, TKV, kQuant, 4>(a, s);

@@ -18,17 +18,22 @@ Both routes take the reference model's prefix-LM mask (``prefix_len``:
 with ``causal``, the first ``prefix_len`` keys are visible to every
 row), which the reference's Pallas dispatch drops.
 
-Both routes take every head width up to 256: a width that is not a
-multiple of 8 (TMA wants 16-byte rows) is zero-padded to the next one by
-the wrapper on both routes (:func:`padded_dims`) and the result sliced
-back; the bfloat16 route runs a pair it has no instantiation for at the
-smallest one that holds it (``with_head_dims`` in the CUDA source picks
-it; :func:`bf16_kernel_dims` asks), its tensor maps at the true widths
-(the boxes read the columns past them as zeros) and its stores stopping
-at them.
-Zero columns change neither Q K^T nor the kept columns of P V, and the
-softmax scale stays the true width's.  Above 256 is refused: Q K^T
-contracts over D, and no configuration reaches it.
+Both routes take every head width: a width that is not a multiple of 8
+(TMA wants 16-byte rows) is zero-padded to the next one by the wrapper
+on both routes (:func:`padded_dims`) and the result sliced back; the
+bfloat16 route runs a pair it has no instantiation for at the smallest
+one that holds it (``with_head_dims`` in the CUDA source picks it;
+:func:`bf16_kernel_dims` asks), its tensor maps at the true widths (the
+boxes read the columns past them as zeros) and its stores stopping at
+them.  Zero columns change neither Q K^T nor the kept columns of P V,
+and the softmax scale stays the true width's.  Past :data:`WIDE_ABOVE`
+columns (D or Dv; absorbed MLA decode attends at (576, 512)) both dtypes
+run the source's wide kernels on the CUDA cores: the contractions stream
+through shared memory in 64-column boxes and the output columns are
+split over blocks, each block recomputing the same scores, so the bits
+stay fixed.  A bfloat16 call runs there as f32 tiles, with p and dS
+rounded to bf16 where they enter a product, as on the tensor cores; it
+is a simple kernel, not a fast one.
 
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
@@ -53,10 +58,11 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # MLA heads); float32 takes any D and Dv that are multiples of 8 up to 256
 BF16_HEAD_DIMS = (64, 80, 96, 128, 256)
 BF16_PAIRS = tuple((d, d) for d in BF16_HEAD_DIMS) + ((96, 64),)
-MAX_HEAD_DIM = 256
+# past this many columns (D or Dv) both dtypes run the wide kernels
+WIDE_ABOVE = 256
 
 __all__ = ["bf16_kernel_dims", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "padded_dims"]
+           "flash_attention_bwd", "is_wide", "padded_dims"]
 
 
 def padded_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -66,11 +72,20 @@ def padded_dims(d: int, dv: int) -> Tuple[int, int]:
     return -(-d // 8) * 8, -(-dv // 8) * 8
 
 
+def is_wide(d: int, dv: int) -> bool:
+    """Whether a (d, dv) call runs the wide kernels (either width past
+    :data:`WIDE_ABOVE`)."""
+    return max(padded_dims(d, dv)) > WIDE_ABOVE
+
+
 def bf16_kernel_dims(d: int, dv: int) -> Tuple[int, int]:
-    """The instantiation (D, Dv) the bfloat16 route runs a (d, dv) call
-    at, as the CUDA source picks it (the smallest pair of
-    :data:`BF16_PAIRS` that holds both, by D + Dv, then D).  Loads the
-    built library, so it runs where the kernels do."""
+    """The widths (D, Dv) the bfloat16 route runs a (d, dv) call at: the
+    tensor cores' instantiation as the CUDA source picks it (the smallest
+    pair of :data:`BF16_PAIRS` that holds both, by D + Dv, then D), or
+    :func:`padded_dims` for a wide call (:func:`is_wide`).  Loads the
+    built library for the former, so it runs where the kernels do."""
+    if is_wide(d, dv):
+        return padded_dims(d, dv)
     dims = _build.library("flash_attention").repro_flash_bf16_dims(
         *padded_dims(d, dv))
     if dims < 0:
@@ -111,11 +126,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
     for name, width in (("head dim", d), ("v head dim", dv)):
-        if width < 1 or width > MAX_HEAD_DIM:
-            raise ValueError(
-                f"{name} {width} must be in [1, {MAX_HEAD_DIM}]: the kernels "
-                f"contract Q K^T over at most {MAX_HEAD_DIM} columns, and no "
-                "configuration needs more")
+        if width < 1:
+            raise ValueError(f"{name} {width} must be >= 1")
     if tq < 1 or tk < 1:
         raise ValueError(f"Tq={tq} and Tk={tk} must be >= 1")
     if causal and tq > tk:

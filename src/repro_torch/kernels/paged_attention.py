@@ -20,6 +20,16 @@ The kernel cuts every row into spans of a fixed number of positions (a
 constant of the source) and writes each span's partial softmax to a
 workspace that the wrapper allocates here; :func:`split_plan` is that
 arithmetic.
+
+Every head width runs.  A width that is not a multiple of 8 (the
+kernel's 16- and 8-byte copies) is zero-padded to the next one here, q
+and both pools, and the output sliced back, the softmax scale the true
+width's: zero columns add nothing to q.k and give zero output columns.
+The pad copies the pools on every call; no configuration has such a
+width (:func:`repro_torch.kernels.flash_attention.padded_dims`, the
+flash wrappers' rounding).  Past 256 columns the source streams each span's rows through
+shared memory in 64-column boxes (``paged_wide_kernel``), with the same
+spans and combine.
 """
 
 from __future__ import annotations
@@ -29,6 +39,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import _pad, padded_dims
 from repro_torch.kernels.ref import quantize_pages
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -60,8 +71,8 @@ def _check(q: torch.Tensor, pages: torch.Tensor, table: torch.Tensor,
         raise ValueError(f"pages head dim {pages.shape[3]} != q head dim {d}")
     if hq % hkv:
         raise ValueError(f"{hq} query heads do not group over {hkv} kv heads")
-    if d % 8 or d > 256:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and <= 256")
+    if d < 1:
+        raise ValueError(f"head dim {d} must be >= 1")
     if table.dim() != 2 or table.shape[0] != b or tuple(lengths.shape) != (b,):
         raise ValueError(f"want table (B, nP) and lengths (B,) with B={b}, got "
                          f"{tuple(table.shape)} and {tuple(lengths.shape)}")
@@ -153,19 +164,21 @@ def paged_attention(
     n, page, hkv, _ = k_pages.shape
     n_p = page_table.shape[1]
     scale = float(d ** -0.5) if scale is None else float(scale)
+    kd = padded_dims(d, d)[0]
+    q, k_pages, v_pages = (_pad(t, kd) for t in (q, k_pages, v_pages))
     out = torch.empty_like(q)
     lib, split = _library()
-    plan = split_plan(b, hq, hkv, d, page, n_p, split)
+    plan = split_plan(b, hq, hkv, kd, page, n_p, split)
     ws = _workspace(plan, q.device)
     err = lib.repro_paged_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), _ptr(ws), b, hq, hkv, d, n, page,
+        out.data_ptr(), _ptr(ws), b, hq, hkv, kd, n, page,
         n_p, plan.max_splits, scale,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1
-    return out
+    return out if kd == d else out[..., :d].contiguous()
 
 
 paged_attention.launches = 0
@@ -196,19 +209,21 @@ def paged_attention_quant(
     b, hq, d = q.shape
     n_p = page_table.shape[1]
     scale = float(d ** -0.5) if scale is None else float(scale)
+    kd = padded_dims(d, d)[0]
+    q, k_pages, v_pages = (_pad(t, kd) for t in (q, k_pages, v_pages))
     out = torch.empty_like(q)
     lib, split = _library()
-    plan = split_plan(b, hq, hkv, d, page, n_p, split)
+    plan = split_plan(b, hq, hkv, kd, page, n_p, split)
     ws = _workspace(plan, q.device)
     err = lib.repro_paged_attention_quant(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),
         page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-        _ptr(ws), b, hq, hkv, d, n, page, n_p,
+        _ptr(ws), b, hq, hkv, kd, n, page, n_p,
         plan.max_splits, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention_quant")
     paged_attention_quant.launches += 1
-    return out
+    return out if kd == d else out[..., :d].contiguous()
 
 
 paged_attention_quant.launches = 0

@@ -29,7 +29,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                 "serve.kvpage", "serve.prefix", "serve.engine",
                 "memory.shared", "obs.recorder", "serve.fleet",
                 "serve.fleet.board", "serve.fleet.worker",
-                "serve.fleet.frontend"):
+                "serve.fleet.frontend", "core.tasks", "optim.compression",
+                "distributed", "distributed.sharding",
+                "distributed.collectives"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"

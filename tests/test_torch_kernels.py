@@ -450,6 +450,96 @@ def test_flash_plain_backward_matches_jax_grad(case):
                                    rtol=1e-5)
 
 
+# heads past 256 columns (the CUDA source's wide kernels) and off a
+# multiple of 8: b, tq, tk, hq, hkv, d, dv, causal; (576, 512) is absorbed
+# MLA decode's
+WIDE_CASES = [
+    pytest.param((1, 16, 16, 2, 1, 264, 264, True), id="wide-264"),
+    pytest.param((1, 12, 20, 2, 2, 300, 300, False), id="wide-300-full"),
+    pytest.param((1, 16, 16, 4, 2, 576, 512, True), id="wide-576-512"),
+    pytest.param((1, 9, 9, 2, 2, 320, 100, True), id="wide-320-dv100"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_CASES)
+def test_flash_plain_at_wide_heads_matches_jnp_and_jax_grad(case):
+    """The plain version (the wide kernels' plain version) against the
+    reference's jnp flash and the Pallas kernel (interpret mode), forward
+    at ``atol=3e-6, rtol=1e-5``, and dQ, dK, dV against ``jax.grad`` of
+    the jnp flash at ``atol=1e-5, rtol=1e-5`` (tests/test_kernels.py's
+    tolerances)."""
+    import jax
+    from repro.kernels.flash_attention import flash_attention_pallas
+    from repro.models import layers as jlayers
+
+    q, k, v, dout = flash_inputs(case, seed=23)
+    causal = case[-1]
+    got = ops.flash_attention(t(q), t(k), t(v), causal=causal)
+    jnp_flash = jlayers.flash_attention(q, k, v, causal=causal, q_chunk=8,
+                                        k_chunk=8)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jnp_flash), **F32_TOL)
+    pallas = flash_attention_pallas(q, k, v, causal=causal, block_q=8,
+                                    block_k=8, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(pallas), **F32_TOL)
+
+    def jloss(q, k, v):
+        out = jlayers.flash_attention(q, k, v, causal=causal, q_chunk=8,
+                                      k_chunk=8)
+        return (out * dout).sum()
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(q, k, v)
+    tq_, tk_, tv_ = (t(x).requires_grad_() for x in (q, k, v))
+    out = ops.flash_attention(tq_, tk_, tv_, causal=causal)
+    grads = torch.autograd.grad(out, (tq_, tk_, tv_), t(dout))
+    for g, w in zip(grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=1e-5)
+
+
+# paged at every width: b, hq, hkv, d, page, n_pages_per_row
+WIDE_PAGED = [
+    pytest.param((2, 4, 2, 100, 8, 4), id="d100"),
+    pytest.param((2, 4, 2, 320, 8, 4), id="d320"),
+    pytest.param((2, 8, 1, 576, 8, 3), id="d576"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_PAGED)
+def test_paged_plain_at_every_width_matches_jnp(case):
+    """The plain paged versions (the kernels' plain versions at D 100, 320
+    and 576, where the CUDA wrapper pads to a multiple of 8 and the source
+    runs its boxed span kernel past 256) against the reference's jnp
+    oracles: float32 and int8 pools at ``atol=3e-6, rtol=1e-5``; and the
+    wrapper's zero padding (q and both pools to the next multiple of 8,
+    the true width's scale) keeps the plain result in the kept columns."""
+    q, k, v, table, lengths = make_pool(case, seed=24)
+    got = ops.paged_attention(t(q), t(k), t(v), t(table), t(lengths))
+    oracle = jpa.paged_attention(q, k, v, np.clip(table, 0, None), lengths)
+    np.testing.assert_allclose(got.numpy(), np.asarray(oracle), **F32_TOL)
+    args = [np.asarray(x) for x in (*jpa.quantize_pages(k),
+                                    *jpa.quantize_pages(v))]
+    gotq = ops.paged_attention_quant(t(q), *map(t, args), t(table), t(lengths))
+    oracleq = jpa.paged_attention_quant(q, *args, np.clip(table, 0, None),
+                                        lengths)
+    np.testing.assert_allclose(gotq.numpy(), np.asarray(oracleq), **F32_TOL)
+    d = case[3]
+    kd = tpa.padded_dims(d, d)[0]
+    assert kd % 8 == 0 and 0 <= kd - d < 8
+    padded = tref.paged_attention(
+        *(tpa._pad(t(x), kd) for x in (q, k, v)),
+        t(np.clip(table, 0, None)), t(lengths), d ** -0.5)
+    torch.testing.assert_close(padded[..., :d], got, atol=1e-6, rtol=1e-6)
+
+
+def test_paged_wide_call_reaches_the_cuda_only_refusal():
+    """No width is refused by the paged wrappers' shape checks: D 100 and
+    576 reach the device check (a CPU tensor)."""
+    for d in (100, 576):
+        q, k, v, table, lengths = make_pool((2, 2, 1, d, 4, 2), seed=25)
+        with pytest.raises(ValueError, match="CUDA"):
+            tpa.paged_attention(t(q), t(k), t(v), t(table), t(lengths))
+
+
 # the prefix-LM mask: (b, tq, tk, hq, hkv, d) and the prefix lengths held;
 # "tk" and "past-tk" stand for Tk and Tk + 5
 PREFIX_SHAPES = [
@@ -644,9 +734,10 @@ def test_flash_dv_call_reaches_the_cuda_only_refusal(which, dtype, d, dv):
 def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
     """A bf16 pair without an instantiation of its own, (96, 32), runs at
     the next one, and a width that is not a multiple of 8 at the next
-    multiple: both reach the device check.  Widths above 256 are refused
-    by name; V must share K's batch, length and heads; dO and O must be
-    V's width."""
+    multiple: both reach the device check.  So do widths above 256 (the
+    wide kernels), 264 and absorbed MLA's (576, 512), and a width below 1
+    is refused by name; V must share K's batch, length and heads; dO and O
+    must be V's width."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(torch.bfloat16) for x in flash_inputs(
@@ -662,24 +753,34 @@ def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, v[..., :12])
     wide = torch.zeros((1, 16, 2, 264))
-    with pytest.raises(ValueError, match="head dim 264 must be in"):
+    assert tfa.is_wide(264, 64) and not tfa.is_wide(256, 256)
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(wide, wide, v)
-    with pytest.raises(ValueError, match="v head dim 264 must be in"):
+    with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, wide)
+    mla = torch.zeros((1, 16, 2, 576))
+    with pytest.raises(ValueError, match="CUDA"):
+        tfa.flash_attention_fwd(mla, mla, torch.zeros((1, 16, 2, 512)))
+    assert tfa.bf16_kernel_dims(576, 512) == (576, 512)
+    assert tfa.bf16_kernel_dims(300, 20) == (304, 24)
+    with pytest.raises(ValueError, match="v head dim 0 must be >= 1"):
+        tfa.flash_attention_fwd(q, k, v[..., :0])
     lse = torch.zeros((1, 2, 16), dtype=torch.float32)
     with pytest.raises(ValueError, match=r"shape \(1, 16, 2, 64\)"):
         tfa.flash_attention_bwd(q, k, v, q, lse, dout)
 
 
 @pytest.mark.parametrize("d,dv", [(72, 72), (112, 112), (160, 160),
-                                  (100, 100), (96, 32), (20, 44)])
+                                  (100, 100), (96, 32), (20, 44),
+                                  (264, 264), (300, 300), (320, 320),
+                                  (512, 512), (576, 512), (264, 20)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_new_widths_reach_the_cuda_only_refusal(d, dv, dtype):
-    """Every head width up to 256 gets past the shape checks, forward and
-    backward, to the device check; the wrappers hand the kernels
-    :func:`padded_dims` (the next multiple of 8, fewer than 8 columns
-    more), and the bf16 route runs those at the smallest instantiated
-    pair that holds them."""
+    """Every head width gets past the shape checks, forward and backward,
+    to the device check; the wrappers hand the kernels :func:`padded_dims`
+    (the next multiple of 8, fewer than 8 columns more), the bf16 route
+    runs those at the smallest instantiated pair that holds them, and past
+    256 (either width) both dtypes run the wide kernels."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(dtype) for x in flash_inputs(

@@ -1,6 +1,7 @@
 """On the card: the scan kernels' gradient through the final state, the
-scans past 64, and flash at head widths with no instantiation of their
-own, each against its plain version and twice bit-identical.
+scans past 64, flash at head widths with no instantiation of their own
+and past 256 (the wide kernels), and the paged kernels off a multiple of
+8 and past 256, each against its plain version and twice bit-identical.
 
 This file imports no JAX: its tests run only where a CUDA card is, and
 skip elsewhere.  Run them there with ``python -m pytest -m cuda
@@ -8,7 +9,8 @@ tests/test_torch_scan_repairs_cuda.py``.  Tolerances are
 ``chip_smoke.py``'s: the scans' float32 outputs ``atol=5e-5, rtol=1e-4``
 and gradients within 1e-4 of their largest magnitude; flash float32
 outputs ``atol=3e-6, rtol=1e-5`` and gradients ``atol=2e-5, rtol=1e-5``;
-bfloat16 ``atol=rtol=3e-2``.
+bfloat16 ``atol=rtol=3e-2``; paged float32 ``atol=3e-6, rtol=1e-5``,
+bfloat16 ``atol=rtol=2e-2``.
 """
 
 import pytest
@@ -19,7 +21,9 @@ from repro_torch.kernels import ops
 SCANS = [("wkv6", (2, 77, 2, 64)), ("wkv6", (1, 77, 2, 128)),
          ("ssd", (2, 77, 3, 64, 64)), ("ssd", (1, 77, 2, 64, 128)),
          ("ssd", (1, 77, 2, 128, 64))]
-FLASH = [(72, 72), (112, 112), (160, 160), (100, 100), (96, 32)]
+FLASH = [(72, 72), (112, 112), (160, 160), (100, 100), (96, 32),
+         (264, 264), (300, 300), (576, 512)]
+PAGED_D = [100, 320, 576]
 
 
 def _card():
@@ -89,3 +93,32 @@ def test_cuda_flash_new_widths_match_plain(d, dv, dtype):
             else [dict(atol=3e-6, rtol=1e-5)] + [dict(atol=2e-5, rtol=1e-5)] * 3)
     for g, w, tol in zip(got[0], got[1], tols):
         torch.testing.assert_close(g, w, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", PAGED_D)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_every_width_matches_plain(d, dtype):
+    """Both paged kernels (plain and int8 pools) at D off a multiple of 8
+    and past 256, ragged lengths over several spans: against the plain
+    versions, and a repeated launch bit-identical."""
+    from repro_torch.kernels import ref
+    dev = _card()
+    gen = torch.Generator(device=dev).manual_seed(2)
+    b, hq, hkv, page, n_p = 3, 8, 2, 16, 12
+    n = 1 + b * n_p
+    q = torch.randn(b, hq, d, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(n, page, hkv, d, generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    table = (1 + torch.arange(b * n_p, device=dev, dtype=torch.int32)).reshape(b, n_p)
+    lengths = torch.tensor([1, 70, page * n_p], dtype=torch.int32, device=dev)
+    kq, ks = ref.quantize_pages(k)
+    vq, vs = ref.quantize_pages(v)
+    tol = (dict(atol=3e-6, rtol=1e-5) if dtype == torch.float32
+           else dict(atol=2e-2, rtol=2e-2))
+    for fn, args in ((ops.paged_attention, (q, k, v, table, lengths)),
+                     (ops.paged_attention_quant,
+                      (q, kq, ks, vq, vs, table, lengths))):
+        got = fn(*args)
+        assert torch.equal(got, fn(*args))
+        torch.testing.assert_close(got, fn(*args, use_kernel=False), **tol)
