@@ -8,10 +8,13 @@ drives its serving path (paged, resilient and contiguous) with
 full-width, full-depth phi3-mini-3.8b, minicpm3-4b (MLA, paged),
 deepseek-moe-16b (MoE, contiguous), whisper-tiny and paligemma-3b
 (contiguous), and its training-and-recovery path with full-width
-phi3-mini-3.8b cut to 2 layers, rwkv6-3b cut to 2, zamba2-2.7b cut to 6,
-minicpm3-4b cut to 2, deepseek-moe-16b cut to 2, paligemma-3b cut to 2 and
-whisper-tiny at full size (random weights from a seed).  Phases, each of
-which raises on a failed check:
+phi3-mini-3.8b cut to 1 layer, rwkv6-3b cut to 1, zamba2-2.7b cut to 6,
+minicpm3-4b cut to 1, deepseek-moe-16b cut to 2, paligemma-3b cut to 1 and
+whisper-tiny at full size (random weights from a seed); and the mesh
+paths (Ulysses prefill of starcoder2-7b and minicpm3-4b, qwen2-moe-a2.7b's
+expert island), xPic's Cluster-Booster offload and the training launcher
+over ranks that share the card.  Phases, each of which raises on a failed
+check:
 
 0. the card (``nvidia-smi`` name and power limit), torch and CUDA
    versions, TF32 off, and the kernels' build time;
@@ -63,7 +66,7 @@ which raises on a failed check:
 7. the XOR kernel against its plain version, R = 2, 4, 8, byte-exact;
 8. ``Trainer`` as ``examples/quickstart.py`` drives it (BUDDY with async
    drain, IntervalPolicy(4), node 3 killed at step 6 of 8) with phi3 at
-   full width and 2 layers, B 4 x T 512, deterministic algorithms and
+   full width and 1 layer, B 4 x T 512, deterministic algorithms and
    TF32 off: one recovery from step 4, the loss falls, flash launches
    are 2 forward (remat) + 1 backward pass (3 launches) per layer per
    step with no plain or library attention call, and the final state's
@@ -93,14 +96,14 @@ which raises on a failed check:
 11. rwkv6-3b: a full-depth (32 layers) bf16 prefill through
    ``make_prefill_step`` (one WKV6 launch per layer, no plain scan), the
    float32 forward through the kernels against the plain path, then
-   ``Trainer`` at published width cut to 2 layers (PARTNER copies,
-   IntervalPolicy(4), node 3 killed at step 6 of 8): one recovery, a
-   falling loss, 2 forward and 1 backward WKV6 launches per layer per step
-   and no plain scan, and a final-state SHA-256 equal to an uninterrupted
-   run's;
+   training at published width cut to 1 layer, 8 steps, twice and
+   uninterrupted under deterministic algorithms (through a node kill and
+   PARTNER copies before its checkpoint I/O was cut for time): a falling
+   loss, 2 forward and 1 backward WKV6 launches per layer per step and no
+   plain scan, and both runs' final states the same bytes;
 12. zamba2-2.7b, the same: full depth 54 layers (one SSD launch per Mamba
    layer, one flash launch per shared-block group), training cut to 6
-   layers (one group): 2 forward and 1 backward SSD launches per Mamba
+   layers (one group), twice: 2 forward and 1 backward SSD launches per Mamba
    layer per step, 1 flash forward and 3 flash backward launches per
    group per step;
 13. resilient serving of full-size phi3-mini-3.8b through ``Serve.local``
@@ -130,10 +133,10 @@ which raises on a failed check:
    times beside (96, 96) at the same shape, the bound and the fastest
    SDPA backend that takes Dv != D; (b) a full-depth (62 layers) bf16
    prefill, one flash launch per layer, no plain call; (c) the float32
-   forward through the kernels against the plain path; (d) ``Trainer``
-   at published width cut to 2 layers (PARTNER, node 3 killed at step 6
-   of 8): one recovery, a falling loss, 2 forward and 3 backward flash
-   launches per layer per step, the uninterrupted run's state bytes;
+   forward through the kernels against the plain path; (d) training at
+   published width cut to 1 layer, twice and uninterrupted (phase 11's
+   form): a falling loss, 2 forward and 3 backward flash launches per
+   layer per step, both runs' final states the same bytes;
    (e) ``Serve.local`` paged with the prefix cache at full size (4
    slots, page 16, 4 requests of 16-48 tokens sharing a 16-token page,
    4 new tokens): spec_k=3 and spec_k=0 emit identical tokens, with no
@@ -163,7 +166,7 @@ which raises on a failed check:
    form that takes the call (the prefix as a boolean mask, kv heads as
    given and repeated); (b) paligemma-3b at full depth (18 layers):
    one bf16 prefill, 18 flash launches, no plain or library attention
-   call; (c) training at published width cut to 2 layers, twice, under
+   call; (c) training at published width cut to 1 layer, twice, under
    deterministic algorithms: the same final state bytes, 2 forward and 3
    backward flash launches per layer per step; (d) whisper-tiny at full
    size (4 + 4 layers, B 4 x T 448 over 1500 frames): a full-depth
@@ -210,7 +213,7 @@ which raises on a failed check:
    at phase 8's size as a task with a failure armed on its rank: one retry
    from the host snapshot, the state byte-identical to the same step run
    outside the runtime; the snapshot's bytes and seconds; (c) a
-   full-width phi3 gradient tree (2 layers' shapes, values from a seed)
+   full-width phi3 gradient tree (phase 8's shapes, values from a seed)
    compressed to int8 and back on the card: every leaf within half its
    scale (plus one float32 rounding), GB/s, q and scale against a CPU run
    at three leaves (a reading); (d) ``xor_all_reduce`` over 4 ranks, one
@@ -219,7 +222,37 @@ which raises on a failed check:
    CUDA XOR kernel does each combine; every rank ends with the numpy XOR
    of the four blocks, with 2 kernel launches and no plain XOR call each;
    seconds per round (exchange, kernel); then ``hierarchical_psum`` of an
-   (8192, 3072) f32 leaf over a 2 x 2 grouping, allclose to the flat sum.
+   (8192, 3072) f32 leaf over a 2 x 2 grouping, allclose to the flat sum;
+19. the mesh paths, the offload and the launcher, over two spawned ranks
+   that share the card (gloo through host buffers; the parent makes each
+   part's weights and hands them over by CUDA IPC, a rank keeping copies
+   only of its own blocks): (a) starcoder2-7b and (b) minicpm3-4b at
+   published width and full depth (32 and 62 layers), ``tp`` 2,
+   ``seq_parallel``, a (data 1 x model 2) mesh, B 2 x T 512 through
+   ``make_prefill_step``: each rank's next tokens equal the single-process
+   forward's, the relative logit error (max |a - b| / max |a| over the
+   logical vocabulary) below the reference's 3e-2, and per rank one flash
+   launch per layer with no plain call; each rank's gloo exchange seconds
+   beside its flash kernel's time; (c) qwen2-moe-a2.7b: the expert island's
+   prefill at full depth (24 layers) with the same gates, then AdamW
+   steps at published width and depth 1, B 4 x T 512, against the same
+   steps in one process on the whole batch (loss and aux within 1%,
+   parameters within 2 lr a step), first over (data 1 x model 2) twice
+   (one SHA-256 of each rank's parameters), then over (data 2 x model 1)
+   (two whole AdamW states and the single-process parameters do not fit
+   one card together, so this run is held by its losses and aux); flash
+   launches 2 forward and 3 backward per layer per step, no plain call;
+   (d) xPic (``examples/xpic_offload.py``) at 2^24 particles on a 4,096-
+   cell grid for 8 steps: the field solve on the Cluster (rank 0, CPU),
+   the particle push offloaded to the Booster (rank 1, the card; the
+   device is asserted inside the push) under ``TaskRuntime.run`` with a
+   transient Booster failure armed in step 3, the particles kept on the
+   Booster and the current gathered back: energies bit-equal to a run
+   without the failure (deterministic algorithms), retried >= 1, failed
+   0, the fabric hops' bytes and seconds printed; (e) ``python -m
+   repro_torch.launch.train --arch phi3-mini-3.8b --steps 6 --fail-at 3
+   --ckpt-every 2`` on the card: one failure and one recovery, the last
+   loss equal to the same command's without ``--fail-at``.
 
 Phase 10 also runs the repair cases: the scans' gradient through the
 final state (a loss on y and on the final state) at 64-wide shapes, WKV6
@@ -234,13 +267,22 @@ takes the call, and those that refuse it), and both paged kernels (plain
 and int8 pools, f32 and bf16, the multi-token folds) at D 100 (padded to
 104), 320 and 576 (the boxed span kernel) against their plain versions,
 twice bit-identical, with bf16 times beside the bound and the fastest SDPA
-backend that takes the call.  For time, phase 5 runs 4 requests of 16
+backend that takes the call; and flash past the 65,535 limit of grid
+dimensions y and z (every launcher folds its blocks into grid x): B
+65,600 x T 16 x 1 head of D 64, and Hq 32,768 over Hkv 16,384 at (512,
+512), B 1 x T 16 (65,536 forward and 65,536 dK/dV slice blocks), forward
+and backward, bf16 against the plain version and f32 against float64.
+For time, phase 5 runs 4 requests of 16
 new tokens (8 of 32 before), phase 13 6 requests of 6 new tokens in (a)
 to (c) (8 of 32 before) and 3 requests in (d) (4 before), and phase 17
 two scaling batches (five before) and fig13's streams to 16 new tokens
 (64 before); phase 8's uninterrupted run takes its steps without
 checkpoints (two and a restore before) and phase 14 (e) serves 4
-requests of 4 new tokens (8 of 8 before).
+requests of 4 new tokens (8 of 8 before); phases 8 (and so 9 and 18),
+11, 14 and 16 (c) train at 1 layer (2 before), and phases 11, 12 and 14
+(d) train twice without checkpoints (through a node kill before: two
+checkpoint commits and a restore of 3-6 GB each; the node kill stays in
+phases 8 and 16 (d)).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -298,7 +340,8 @@ from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.core.tasks import TaskError, TaskRuntime, _snapshot  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.memory.tiers import MemoryTier, TierKind, TierSpec  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.adamw import (AdamWConfig, adamw_init,  # noqa: E402
+                                     tree_leaves, tree_map)
 from repro_torch.optim.compression import (compress_grads,  # noqa: E402
                                            decompress_grads, init_residual)
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
@@ -396,6 +439,13 @@ REPAIR_FLASH = {   # b, tq, tk, hq, hkv, d, dv
     "(512, 512)": (2, 256, 256, 8, 2, 512, 512),
     "(576, 512)": (2, 256, 256, 8, 2, 576, 512),
 }
+# fault 6: flash past the 65,535 limit of grid dimensions y and z (every
+# launcher folds its blocks into grid x): a batch of 65,600, and a wide call
+# of 65,536 column-slice blocks forward and 65,536 dK/dV slice blocks
+REPAIR_GRID = {   # b, tq, tk, hq, hkv, d, dv
+    "B 65600": (65600, 16, 16, 1, 1, 64, 64),
+    "Hq 32768 over 16384 at (512, 512)": (1, 16, 16, 32768, 16384, 512, 512),
+}
 # the paged kernels off a multiple of 8 (padded by the wrapper) and past 256
 # (the boxed span kernel): b, hq, hkv, d, page, nP, lengths (phase 1's
 # ragged lengths, two spans and more)
@@ -409,17 +459,26 @@ REPAIR_PAGED = {
 # overflows there)
 BELOW_CLIP_SHAPE = (1, 77, 2, 64)
 # phases 11-12: the recurrent families at published width; training cuts
-# the depth (rwkv6-3b 32 -> 2 layers, zamba2-2.7b 54 -> 6, one group)
-FAMILY = dict(layers={"rwkv6-3b": 2, "zamba2-2.7b": 6, "minicpm3-4b": 2,
-                      "deepseek-moe-16b": 2, "paligemma-3b": 2,
+# the depth (rwkv6-3b 32 -> 1 layer, zamba2-2.7b 54 -> 6, one group;
+# minicpm3-4b and paligemma-3b -> 1; deepseek-moe-16b -> 2, its first layer
+# dense); 1 layer where 2 ran before, for the script's time limit
+FAMILY = dict(layers={"rwkv6-3b": 1, "zamba2-2.7b": 6, "minicpm3-4b": 1,
+                      "deepseek-moe-16b": 2, "paligemma-3b": 1,
                       "whisper-tiny": 4}, batch=4, seq=512,
               steps=8, ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3,
-              warmup=4)
+              warmup=4,
+              # the families whose training runs through a node kill and a
+              # restore; the others run twice uninterrupted and end on the
+              # same bytes (their kill runs' checkpoint I/O, ~35-75 s each on
+              # a slow host's disk, cut for the script's time limit)
+              kill={"whisper-tiny"})
 # kernel path vs plain path of a whole float32 forward: 1.6e-5 measured on
 # an H100 (rwkv6-3b, 2 layers)
 FAMILY_F32_TOL = dict(atol=1e-4, rtol=1e-4)
-# the training run: phi3-mini-3.8b at published width, depth cut to 2
-TRAIN = dict(arch="phi3-mini-3.8b", layers=2, batch=4, seq=512, steps=8,
+# the training run: phi3-mini-3.8b at published width, depth cut to 1 (2
+# before, cut for the script's time limit: the state each checkpoint
+# commits, and phase 9 parity-protects, shrinks from 5.09 to ~3.7 GB)
+TRAIN = dict(arch="phi3-mini-3.8b", layers=1, batch=4, seq=512, steps=8,
              ckpt_every=4, fail_step=6, fail_rank=3, lr=1e-3, warmup=4)
 # free disk a 2-layer run needs: BUDDY keeps 2 checkpoints of ~5.1 GB,
 # each as local, buddy and global copies
@@ -1899,7 +1958,60 @@ def phase10_repairs() -> dict:
     for label, shape in REPAIR_PAGED.items():
         out["paged"][label] = repair_paged(label, shape)
         release()
+    out["flash_grid"] = {label: repair_grid(label, shape)
+                         for label, shape in REPAIR_GRID.items()}
+    release()
     return out
+
+
+def repair_grid(label, shape) -> dict:
+    """Flash past the grid's y / z limit, forward and backward, f32 and
+    bf16, against the plain version (phase 6's tolerances)."""
+    b, tq, tk, hq, hkv, d, dv = shape
+    slices = -(-dv // fa.WIDE_ABOVE) if fa.is_wide(d, dv) else 0
+    rec = {"shape": [b, tq, tk, hq, hkv, d, dv], "wide": fa.is_wide(d, dv),
+           "fwd_slice_blocks": hq * slices,
+           "dkdv_slice_blocks": hkv * (-(-d // fa.WIDE_ABOVE)
+                                       + -(-dv // fa.WIDE_ABOVE)) if slices
+           else 0}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = f"{label} {str(dtype)[6:]}"
+        q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, dtype,
+                                     seed=SEED + 16, dv=dv)
+        got = flash_grads(q, k, v, dout, None)
+        want = flash_grads(q, k, v, dout, False)
+        if dtype == torch.bfloat16:
+            err = check_close(f"flash fwd {tag}", got[0], want[0],
+                              **FLASH_BF16_TOL)
+            for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
+                err = max(err, check_close(f"flash bwd {name} {tag}", g, w,
+                                           **FLASH_BF16_TOL))
+        else:
+            # float32 sums of 512 products: over 2^28 outputs the plain
+            # version's own rounding reaches past phase 6's tolerance, so
+            # the kernel is held against float64 (no farther from it than
+            # the plain version, or FLASH_F64_ATOL)
+            exact = flash_grads(q.double(), k.double(), v.double(),
+                                dout.double(), False)
+            err = 0.0
+            for name, g, w, e in zip(("out", "dQ", "dK", "dV"), got, want,
+                                     exact):
+                kern = (g.double() - e).abs().max().item()
+                plain = (w.double() - e).abs().max().item()
+                err = max(err, (g - w).abs().max().item())
+                say(f"  flash {name} {tag}: distance to float64 kernel "
+                    f"{kern:.3e}, plain {plain:.3e} (limit max(plain, "
+                    f"{FLASH_F64_ATOL}))")
+                if kern > max(plain, FLASH_F64_ATOL):
+                    raise AssertionError(f"flash {name} {tag}: the kernel lies "
+                                         f"{kern:.3e} from float64")
+            del exact
+        rec[f"max_abs_err_{str(dtype)[6:]}"] = err
+        del q, k, v, dout, got, want
+        release()
+    say(f"  flash {label}: {rec['fwd_slice_blocks'] or b} forward blocks "
+        "past grid y / z's 65,535 held against the plain version")
+    return rec
 
 
 def repair_flash(label, shape) -> dict:
@@ -2429,6 +2541,81 @@ def clean_sha(cfg, model, seq=None) -> tuple:
     return manifest, losses, walls, auxes
 
 
+def family_want(cfg, kernels: tuple, steps: int) -> dict:
+    """The kernel launches a family's training makes in ``steps`` steps."""
+    layers = cfg.n_layers
+    groups = layers // max(1, cfg.attn_every) if cfg.attn_every else 0
+    want = {kernels[0]: 2 * layers * steps, kernels[1]: layers * steps}
+    if kernels[0] == "flash_attention_fwd":
+        # attention in every layer: 2 forward launches (remat) and one
+        # backward pass of 3 launches per layer per step
+        want[kernels[1]] = 3 * layers * steps
+    if cfg.family == "encdec":
+        # whisper: the encoder's layers (not remat'd) one forward each, the
+        # decoder's two calls (self, cross) twice; a backward pass per call
+        calls = flash_calls_per_pass(cfg)
+        want = {kernels[0]: (calls + 2 * cfg.n_layers) * steps,
+                kernels[1]: 3 * calls * steps}
+    if groups:
+        want["flash_attention_fwd"] = groups * steps
+        want["flash_attention_bwd"] = 3 * groups * steps
+    return want
+
+
+def family_twice(arch, cfg, model, kernels, seq, prefill, f32_err) -> dict:
+    """Training at published width with the depth cut, twice and
+    uninterrupted under deterministic algorithms: each run's kernel
+    launches counted from zero and no plain call, a falling loss, and the
+    two final states the same bytes."""
+    say(f"  training: published width, depth cut {get_config(arch).n_layers}"
+        f" -> {cfg.n_layers} layers; B {FAMILY['batch']} x T {seq}, "
+        f"{FAMILY['steps']} steps, twice, no checkpoints (the node-kill run "
+        "is phases 8 and 16 (d)'s)")
+    torch.use_deterministic_algorithms(True)
+    runs = []
+    try:
+        for i in range(2):
+            torch.cuda.reset_peak_memory_stats()
+            reset_family_launches()
+            with counting_calls(PLAIN_SCANS) as plain:
+                manifest, losses, walls, _ = clean_sha(cfg, model, seq)
+            runs.append((manifest, losses, family_launches(), dict(plain)))
+            steps = sorted(walls[1:])
+            say(f"  run {i + 1}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; "
+                f"step median {1e3 * steps[len(steps) // 2]:.1f} ms (first "
+                f"{1e3 * walls[0]:.1f} ms); launches {runs[-1][2]}; plain "
+                f"calls {runs[-1][3]}; peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; sha256 "
+                f"{manifest['sha256'][:16]}.. over {manifest['total_bytes']} "
+                "bytes")
+    finally:
+        torch.use_deterministic_algorithms(False)
+    want = family_want(cfg, kernels, FAMILY["steps"])
+    for manifest, losses, launches, plain in runs:
+        for name, n in want.items():
+            if launches[name] != n:
+                raise AssertionError(f"{launches[name]} {name} launches, "
+                                     f"want {n}")
+        if any(plain.values()):
+            raise AssertionError(f"the training path called plain versions: "
+                                 f"{plain}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError("the loss did not fall")
+    (m1, *_), (m2, *_) = runs
+    if (m1["sha256"], m1["total_bytes"]) != (m2["sha256"], m2["total_bytes"]):
+        raise AssertionError("two deterministic runs ended on different state "
+                             "bytes")
+    say(f"  both runs' final states byte-identical: sha256 "
+        f"{m1['sha256'][:16]}.. over {m1['total_bytes']} bytes")
+    release()
+    return {"launches": {k: runs[0][2][k] for k in want},
+            "main_path": {"arch": arch, "layers": cfg.n_layers,
+                          "layers_published": get_config(arch).n_layers,
+                          "batch": FAMILY["batch"], "seq": seq,
+                          "steps_run": FAMILY["steps"]},
+            "prefill": prefill, "f32_logits_err": f32_err}
+
+
 def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
     """Full-depth prefill, then training at published width with the
     depth cut, one node killed, recovered, and the final state's SHA-256
@@ -2437,12 +2624,15 @@ def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
     layers = FAMILY["layers"][arch]
     seq = FAMILY["seq"] if seq is None else seq
     say(f"== phase {phase}: {arch} through the {kernels[0].rsplit('_', 1)[0]} "
-        "kernels: full-depth prefill, then training with a node kill")
+        "kernels: full-depth prefill, then training "
+        + ("with a node kill" if arch in FAMILY["kill"] else "twice"))
     prefill = prefill_full_depth(arch, kernels, seq)
     cfg = dataclasses.replace(get_config(arch), n_layers=layers)
     model = get_model(cfg)
     f32_err = check_kernel_path_f32(cfg, model)
     n_params = sum(p.numel() for p in tree_leaves(model.param_shapes(cfg)))
+    if arch not in FAMILY["kill"]:
+        return family_twice(arch, cfg, model, kernels, seq, prefill, f32_err)
     torch.use_deterministic_algorithms(True)
     tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{arch}_"))
     try:
@@ -2489,21 +2679,7 @@ def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
     steps = report.steps_run
-    groups = layers // max(1, cfg.attn_every) if cfg.attn_every else 0
-    want = {kernels[0]: 2 * layers * steps, kernels[1]: layers * steps}
-    if kernels[0] == "flash_attention_fwd":
-        # attention in every layer: 2 forward launches (remat) and one
-        # backward pass of 3 launches per layer per step
-        want[kernels[1]] = 3 * layers * steps
-    if cfg.family == "encdec":
-        # whisper: the encoder's layers (not remat'd) one forward each, the
-        # decoder's two calls (self, cross) twice; a backward pass per call
-        calls = flash_calls_per_pass(cfg)
-        want = {kernels[0]: (calls + 2 * cfg.n_layers) * steps,
-                kernels[1]: 3 * calls * steps}
-    if groups:
-        want["flash_attention_fwd"] = groups * steps
-        want["flash_attention_bwd"] = 3 * groups * steps
+    want = family_want(cfg, kernels, steps)
     say(f"  node kill: launches {launches} over {steps} steps x {layers} "
         f"layers; plain calls {plain}; peak device memory "
         f"{peak / 2**30:.3f} GiB")
@@ -2977,7 +3153,7 @@ def mla_requests(vocab: int):
 
 def phase14(sass: dict) -> dict:
     say("== phase 14: minicpm3-4b (MLA): the flash kernels with Dv != D, "
-        "full-depth prefill, training with a node kill, paged serving")
+        "full-depth prefill, training twice, paged serving")
     t_phase = time.perf_counter()
     out = {"kernels": phase14_kernels(sass)}
     # (b) full-depth prefill, (c) float32 kernel path, (d) training
@@ -4064,7 +4240,7 @@ def phase18_step(root: Path) -> dict:
 
 
 def phase18_compression() -> dict:
-    """(c) a full-width phi3 gradient tree (2 layers, shapes of the step's
+    """(c) a full-width phi3 gradient tree (phase 8's layers, shapes of the step's
     parameters, values from a seed) compressed and decompressed on the
     card; each leaf within half its scale (plus one float32 rounding of
     the product) of the gradient."""
@@ -4269,6 +4445,603 @@ def phase18() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 19: the mesh paths, the Cluster-Booster offload and the launcher
+# ---------------------------------------------------------------------- #
+
+# (a)-(b): Ulysses prefill at published width and full depth, (c) the MoE
+# island of qwen2-moe-a2.7b (prefill at full depth; training at depth 1),
+# over 2 ranks on the one card; (d) xPic split between a CPU Cluster rank
+# and a Booster rank on the card; (e) the training launcher
+P19 = dict(seqpar=("starcoder2-7b", "minicpm3-4b"), batch=2, seq=512,
+           moe_arch="qwen2-moe-a2.7b", train_batch=4, train_seq=512,
+           train_steps=3, lr=1e-3, warmup=2,
+           xpic_part=2**24, xpic_grid=4096, xpic_steps=8, xpic_fail=3,
+           launch=["--arch", "phi3-mini-3.8b", "--steps", "6",
+                   "--ckpt-every", "2"], launch_fail=3)
+P19_RANKS = 2
+P19_PART_TIMEOUT_S = 300
+# the reference's own bound for the sequence-parallel logits
+# (tests/test_dryrun.py: max |a - b| / max |a| < 3e-2)
+P19_LOGIT_REL = 3e-2
+# bf16 training on a mesh against one process on the whole batch: loss and
+# aux within 1% (the batch's rows and the experts' hidden dims split into
+# other bf16 matmul shapes); a parameter within 2 lr a step of AdamW (an
+# update is about lr whatever its gradient, so a near-zero gradient whose
+# sign flips moves its parameter by up to 2 lr)
+P19_LOSS_REL = 1e-2
+
+
+def p19_config(arch, **kw):
+    return dataclasses.replace(get_config(arch), tp=P19_RANKS, **kw)
+
+
+def p19_mesh(data, model):
+    from repro_torch.distributed.mesh import Mesh
+    return Mesh((data, model), ("data", "model"))
+
+
+@contextlib.contextmanager
+def p19_counted():
+    """Flash launches from zero, plain attention calls counted, and the
+    gloo exchanges timed (synchronized), for one main-path run."""
+    from repro_torch.distributed import collectives as C
+    calls = {"plain": 0, "exchange_s": 0.0, "exchanges": 0}
+    plain_fn = ref.flash_attention
+    saved = {n: getattr(C, n)
+             for n in ("_a2a", "_gather", "_sum", "average_gradients")}
+
+    def plain(*a, **kw):
+        calls["plain"] += 1
+        return plain_fn(*a, **kw)
+
+    def timed(fn):
+        def wrapper(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls["exchange_s"] += time.perf_counter() - t0
+            calls["exchanges"] += 1
+            return out
+        return wrapper
+
+    ref.flash_attention = plain
+    for n, fn in saved.items():
+        setattr(C, n, timed(fn))
+    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    try:
+        yield calls
+    finally:
+        ref.flash_attention = plain_fn
+        for n, fn in saved.items():
+            setattr(C, n, fn)
+        calls["fwd"] = fa.flash_attention_fwd.launches
+        calls["bwd"] = fa.flash_attention_bwd.launches
+
+
+def tensor_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def p19_prefill(rank, arch, params, tokens, logits, moe=False):
+    """(a)-(c) on one rank: the prefill step on the mesh (counted), then
+    the rank's block of the logits against the single-process forward's."""
+    from repro_torch.models import moe as M
+    from repro_torch.models import transformer as T
+    cfg = p19_config(arch, seq_parallel=not moe)
+    model = get_model(cfg)
+    mesh = p19_mesh(1, P19_RANKS)
+    local = (M.island_params if moe else T.seqpar_params)(params, cfg, mesh)
+    shared = {id(t) for t in tree_leaves(params)}
+    own = sum(t.numel() * t.element_size() for t in tree_leaves(local)
+              if id(t) not in shared)
+    step = make_prefill_step(cfg, model, mesh=mesh)
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with p19_counted() as calls:
+        toks = step(local, batch)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        got, _ = model.forward(local, batch, cfg, remat=False, mesh=mesh)
+    ti = mesh.index("model")
+    want = logits if moe else logits[:, ti * got.shape[1]:(ti + 1) * got.shape[1]]
+    v = cfg.vocab_size       # the padded columns hold -1e30 on both sides
+    err = (got[..., :v].float() - want[..., :v].float()).abs().max().item()
+    scale = logits[..., :v].float().abs().max().item()
+    # the flash call a rank makes: Ulysses, its heads over all of T (kv
+    # heads repeated to them); the island, every head over its rows
+    b, t = tokens.shape
+    if moe:
+        hq, hkv = cfg.padded_heads, cfg.padded_kv_heads
+        d = dv = cfg.resolved_head_dim
+    else:
+        hq = hkv = cfg.padded_heads // P19_RANKS
+        d = (cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim if cfg.mla
+             else cfg.resolved_head_dim)
+        dv = cfg.mla.v_head_dim if cfg.mla else d
+    q_shape = (b, t, hq, hkv, d, dv)
+    q, k, v, _ = flash_inputs(b, t, t, hq, hkv, d, torch.bfloat16, dv=dv)
+    scale_qk = (d ** -0.5)
+    flash_ms = time_ms(lambda: fa.flash_attention_fwd(q, k, v, True, scale_qk),
+                       iters=20, warmup=3)
+    rec = {"rank": rank, "arch": arch, "tokens": toks.tolist(),
+           "wall_s": wall, "exchange_s": calls["exchange_s"],
+           "exchanges": calls["exchanges"], "fwd": calls["fwd"],
+           "plain": calls["plain"], "max_abs_err": err, "max_abs_ref": scale,
+           "own_bytes": own, "param_bytes": tensor_bytes(local),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "flash_ms": flash_ms, "flash_shape": list(q_shape)}
+    del local, got, want, q, k, v
+    return rec
+
+
+def p19_fingerprint(tree) -> str:
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().cpu().contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def p19_train(rank, data, model_n, params, batches, ref_params, runs):
+    """(c) training on one rank of a (data x model) mesh: ``runs`` runs of
+    the steps from the same initial state; losses, aux, the final
+    parameters' SHA-256 and their distance to the single-process run's."""
+    from repro_torch.models import moe as M
+    cfg = p19_config(P19["moe_arch"], n_layers=1)
+    model = get_model(cfg)
+    mesh = p19_mesh(data, model_n)
+    step = make_train_step(cfg, model, AdamWConfig(lr=P19["lr"],
+                                                   warmup_steps=P19["warmup"]),
+                           mesh=mesh)
+    local = M.island_params(params, cfg, mesh)
+    ref_local = (None if ref_params is None
+                 else M.island_params(ref_params, cfg, mesh))
+    rec = {"rank": rank, "mesh": [data, model_n], "runs": []}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for run in range(runs):
+            torch.cuda.reset_peak_memory_stats()
+            state = {"params": local, "opt": adamw_init(local),
+                     "step": torch.zeros((), dtype=torch.int32, device=DEVICE)}
+            losses, auxes = [], []
+            t0 = time.perf_counter()
+            with p19_counted() as calls:
+                for b in batches:
+                    state, met = step(state, b)
+                    losses.append(met["loss"].item())
+                    auxes.append(met["router_aux"].item())
+            wall = time.perf_counter() - t0
+            dist_ = None if ref_local is None else max(
+                (a.float() - w.float()).abs().max().item()
+                for a, w in zip(tree_leaves(state["params"]),
+                                tree_leaves(ref_local)))
+            rec["runs"].append({
+                "losses": losses, "aux": auxes, "wall_s": wall,
+                "exchange_s": calls["exchange_s"], "fwd": calls["fwd"],
+                "bwd": calls["bwd"], "plain": calls["plain"],
+                "param_max_abs_diff": dist_,
+                "sha256": (p19_fingerprint(state["params"]) if runs > 1
+                           else None),
+                "param_bytes": tensor_bytes(state["params"]),
+                "peak_bytes": torch.cuda.max_memory_allocated()})
+            del state, met
+            release()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    del local, ref_local
+    return rec
+
+
+def xpic_field_solve(e_field, current):
+    """Cluster side (examples/xpic_offload.py): the field from the
+    deposited current (toy Maxwell)."""
+    lap = torch.roll(e_field, 1) - 2 * e_field + torch.roll(e_field, -1)
+    return e_field + 0.1 * (0.5 * lap - current)
+
+
+def xpic_particle_push(pos, vel, e_field):
+    """Booster side: push the particles in the interpolated field and
+    deposit the current (index_put with accumulate: deterministic)."""
+    if pos.device.type != torch.device(DEVICE).type:
+        raise AssertionError(f"the particle push ran on {pos.device}")
+    grid, n = e_field.shape[0], pos.shape[0]
+    cell = ((pos * grid).to(torch.int32) % grid).long()
+    vel = vel + 0.1 * e_field[cell]
+    pos = (pos + 0.1 * vel) % 1.0
+    current = torch.zeros(grid, dtype=vel.dtype, device=vel.device)
+    current = current.index_put((cell,), vel, accumulate=True) / (n / grid)
+    return pos, vel, current
+
+
+def xpic_kinetic(vel):
+    return (vel * vel).sum()
+
+
+def p19_xpic(rank):
+    """(d) on one rank: rank 0 the Cluster (CPU), rank 1 the Booster (the
+    card); the loop with a Booster failure armed and without."""
+    import torch.distributed as dist
+    from repro_torch.cluster.topology import Module
+    from repro_torch.core.offload import OffloadEngine, split_mesh
+    eng = OffloadEngine(split_mesh(p19_mesh(2, 1), 1),
+                        device="cpu" if rank == 0 else DEVICE)
+    n, grid = P19["xpic_part"], P19["xpic_grid"]
+    rec = {"rank": rank}
+    torch.use_deterministic_algorithms(True)
+    try:
+        for fail in (True, False):
+            gen = torch.Generator().manual_seed(SEED + 195)
+            pos = eng.put(torch.rand(n, generator=gen), Module.CLUSTER)
+            vel = eng.put(torch.zeros(n), Module.CLUSTER)
+            e_field = eng.put(torch.sin(torch.linspace(0, 6.28, grid)),
+                              Module.CLUSTER)
+            current = eng.put(torch.zeros(grid), Module.CLUSTER)
+            root = Path(tempfile.mkdtemp(prefix=f"chip_smoke_xpic{rank}_"))
+            cluster = VirtualCluster(n_cluster=2, n_booster=2, root=root)
+            runtime = TaskRuntime(cluster, max_retries=3)
+            booster = cluster.ranks(Module.BOOSTER)[0]
+            energy = []
+            before = dict(eng.fabric)
+            t0 = time.perf_counter()
+            for s in range(P19["xpic_steps"]):
+                e_field = runtime.run(
+                    f"field_{s}",
+                    lambda e, c: eng.offload(xpic_field_solve, Module.CLUSTER, e, c),
+                    e_field, current, rank=cluster.ranks(Module.CLUSTER)[0])
+                if fail and s == P19["xpic_fail"]:
+                    cluster.arm_failure(booster, NodeState.FAILED_TRANSIENT)
+                pos, vel, cur = runtime.run(
+                    f"particles_{s}",
+                    lambda p, v, e: eng.offload(xpic_particle_push,
+                                                Module.BOOSTER, p, v, e),
+                    pos, vel, e_field, rank=booster)
+                current = eng.gather(cur, Module.CLUSTER)
+                ke = eng.gather(eng.offload(xpic_kinetic, Module.BOOSTER, vel),
+                                Module.CLUSTER)
+                if rank == 0:
+                    energy.append(float(ke.value + (e_field.value ** 2).sum()))
+            wall = time.perf_counter() - t0
+            cluster.teardown()
+            shutil.rmtree(root, ignore_errors=True)
+            rec[f"fail_{fail}"] = {
+                "energy": energy, "wall_s": wall,
+                "retried": runtime.stats.retried, "failed": runtime.stats.failed,
+                "booster_device": None if rank == 0 else str(pos.value.device),
+                **{k: eng.fabric[k] - before[k] for k in eng.fabric}}
+            del pos, vel, e_field, current, cur, ke
+    finally:
+        torch.use_deterministic_algorithms(False)
+    return rec
+
+
+P19_PARTS = {"prefill": p19_prefill, "train": p19_train, "xpic": p19_xpic}
+
+
+def phase19_rank(rank: int, store: str, cmd_q, res_q) -> None:
+    """One rank of phase 19's world (gloo through host buffers: the two
+    ranks share the card): each command from the parent runs one part;
+    tensors arrive through CUDA IPC from the parent, which holds them."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    # before the first allocation: (c)'s training holds two whole AdamW
+    # states on the card, and fragments would not fit
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", store=dist.FileStore(store, P19_RANKS),
+                            rank=rank, world_size=P19_RANKS,
+                            timeout=timedelta(seconds=RANK_TIMEOUT_S))
+    try:
+        while True:
+            msg = cmd_q.get(timeout=P19_PART_TIMEOUT_S)
+            if msg is None:
+                break
+            part, kw = msg
+            try:
+                rec = P19_PARTS[part](rank, **kw)
+            except Exception as e:   # reported, then the rank exits non-zero
+                res_q.put((rank, part, {"error": f"{type(e).__name__}: {e}"}))
+                raise
+            del msg, kw
+            release()
+            res_q.put((rank, part, rec))
+    finally:
+        dist.destroy_process_group()
+
+
+class P19World:
+    """Phase 19's two ranks, spawned once; ``run`` sends a part to both and
+    waits for their records.  A rank that dies or hangs fails the phase
+    and every rank is stopped."""
+
+    def __init__(self, root: Path):
+        import torch.multiprocessing as tmp
+        ctx = tmp.get_context("spawn")
+        self.cmd = [ctx.Queue() for _ in range(P19_RANKS)]
+        self.res = ctx.Queue()
+        self.procs = [ctx.Process(target=phase19_rank,
+                                  args=(r, str(root / "store"), self.cmd[r],
+                                        self.res))
+                      for r in range(P19_RANKS)]
+        for p in self.procs:
+            p.start()
+
+    def run(self, part: str, **kw) -> list:
+        for q in self.cmd:
+            q.put((part, kw))
+        recs = {}
+        deadline = time.monotonic() + P19_PART_TIMEOUT_S
+        while len(recs) < P19_RANKS:
+            try:
+                r, got_part, rec = self.res.get(timeout=5)
+            except Exception:
+                if (time.monotonic() > deadline
+                        or any(not p.is_alive() for p in self.procs)):
+                    raise AssertionError(
+                        f"phase 19 {part}: ranks exited with "
+                        f"{[p.exitcode for p in self.procs]} or timed out")
+                continue
+            if "error" in rec:
+                raise AssertionError(f"phase 19 {part}: rank {r} failed: "
+                                     f"{rec['error']}")
+            recs[r] = rec
+        return [recs[r] for r in range(P19_RANKS)]
+
+    def close(self) -> None:
+        for q in self.cmd:
+            try:
+                q.put(None)
+            except Exception:
+                pass
+        deadline = time.monotonic() + 30
+        for p in self.procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        for p in self.procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def p19_reference_prefill(arch, moe=False):
+    """The weights (a bf16 serving tree from a seed), the tokens and the
+    single-process forward's logits on the card."""
+    cfg = p19_config(arch)
+    model = get_model(cfg)
+    params = model.init(SEED + 190, cfg, device=DEVICE, cast=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 191)
+    tokens = torch.randint(0, cfg.vocab_size, (P19["batch"], P19["seq"]),
+                           generator=gen, device=DEVICE, dtype=torch.int32)
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": tokens}, cfg, remat=False)
+    return cfg, params, tokens, logits
+
+
+def p19_check_prefill(tag, cfg, recs, logits, failures, rel_gate=True) -> dict:
+    """Each rank's tokens, launches and (``rel_gate``) the relative logit
+    error against the single-process forward's."""
+    want = logits[:, -1].argmax(-1).tolist()
+    rel = max(r["max_abs_err"] for r in recs) / max(recs[0]["max_abs_ref"], 1e-6)
+    for r in recs:
+        say(f"    rank {r['rank']}: prefill {r['wall_s']:.3f} s (gloo exchange "
+            f"{r['exchange_s']:.3f} s in {r['exchanges']} collectives; flash "
+            f"kernel {r['flash_ms']:.5f} ms a call at {r['flash_shape']} x "
+            f"{r['fwd']} launches), tokens {r['tokens']}; flash launches "
+            f"{r['fwd']}, plain calls {r['plain']}; holds "
+            f"{r['own_bytes']} B of its own blocks, {r['param_bytes']} B of "
+            f"parameters in all; peak {r['peak_bytes'] / 2**30:.2f} GiB")
+        if r["tokens"] != want:
+            failures.append(f"{tag} rank {r['rank']}: tokens {r['tokens']} != "
+                            f"the single-process forward's {want}")
+        if r["fwd"] != cfg.n_layers or r["plain"]:
+            failures.append(f"{tag} rank {r['rank']}: {r['fwd']} flash launches "
+                            f"(want {cfg.n_layers}), {r['plain']} plain calls")
+    say(f"    single-process tokens {want}; relative logit error {rel:.3e} "
+        + (f"(limit {P19_LOGIT_REL})" if rel_gate else "(reported)"))
+    if rel_gate and not rel < P19_LOGIT_REL:
+        failures.append(f"{tag}: relative logit error {rel:.3e}")
+    return {"ranks": recs, "rel_err": rel, "tokens": want,
+            "layers": cfg.n_layers}
+
+
+def p19_moe_train(world, failures) -> dict:
+    """(c) training: the single-process steps on the whole batch, then the
+    mesh runs from the same initial state."""
+    cfg = p19_config(P19["moe_arch"], n_layers=1)
+    model = get_model(cfg)
+    state = init_train_state(SEED + 193, cfg, model, device=DEVICE)
+    init_params = state["params"]
+    pipe = TokenPipeline(cfg.vocab_size, P19["train_batch"], P19["train_seq"])
+    batches = [{k: torch.from_numpy(v).to(DEVICE)
+                for k, v in pipe.batch_at(i).items()}
+               for i in range(P19["train_steps"])]
+    step = make_train_step(cfg, model, AdamWConfig(lr=P19["lr"],
+                                                   warmup_steps=P19["warmup"]))
+    torch.use_deterministic_algorithms(True)
+    losses, auxes = [], []
+    try:
+        for b in batches:
+            state, met = step(state, b)
+            losses.append(met["loss"].item())
+            auxes.append(met["router_aux"].item())
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ref_params = state["params"]
+    del state, met
+    release()
+    say(f"    single process, whole batch (B {P19['train_batch']} x T "
+        f"{P19['train_seq']}): losses {losses}, router aux {auxes}")
+    out = {"single": {"losses": losses, "aux": auxes}}
+    tol_p = 2 * P19["lr"] * P19["train_steps"]
+    for data, model_n, runs in ((1, P19_RANKS, 2), (P19_RANKS, 1, 1)):
+        tag = f"(c) train data {data} x model {model_n}"
+        if data > 1:
+            # each rank holds the whole AdamW state: no room for the
+            # single-process parameters beside two of them
+            ref_params = None
+            release()
+        recs = world.run("train", data=data, model_n=model_n,
+                         params=init_params, batches=batches,
+                         ref_params=ref_params, runs=runs)
+        for r in recs:
+            for i, run in enumerate(r["runs"]):
+                say(f"    {tag} rank {r['rank']} run {i}: losses "
+                    f"{run['losses']}, aux {run['aux']}; {run['wall_s']:.3f} s "
+                    f"(gloo {run['exchange_s']:.3f} s); flash fwd {run['fwd']} "
+                    f"bwd {run['bwd']}, plain {run['plain']}; params "
+                    f"{run['param_bytes']} B, peak "
+                    f"{run['peak_bytes'] / 2**30:.2f} GiB; max |param - "
+                    f"single| {run['param_max_abs_diff']} (limit {tol_p}); "
+                    f"sha256 {(run['sha256'] or '-')[:16]}..")
+                for name, got, want in (("loss", run["losses"], losses),
+                                        ("aux", run["aux"], auxes)):
+                    if any(abs(g - w) > P19_LOSS_REL * abs(w)
+                           for g, w in zip(got, want)):
+                        failures.append(f"{tag} rank {r['rank']}: {name} {got} "
+                                        f"vs single {want}")
+                if (run["param_max_abs_diff"] is not None
+                        and run["param_max_abs_diff"] > tol_p):
+                    failures.append(f"{tag} rank {r['rank']}: params "
+                                    f"{run['param_max_abs_diff']:.3e} from "
+                                    "the single-process run")
+                steps = P19["train_steps"]
+                if (run["fwd"] != 2 * cfg.n_layers * steps
+                        or run["bwd"] != 3 * cfg.n_layers * steps
+                        or run["plain"]):
+                    failures.append(f"{tag} rank {r['rank']}: flash fwd "
+                                    f"{run['fwd']} bwd {run['bwd']} plain "
+                                    f"{run['plain']}")
+            if runs == 2 and r["runs"][0]["sha256"] != r["runs"][1]["sha256"]:
+                failures.append(f"{tag} rank {r['rank']}: two runs differ")
+        out[f"data{data}_model{model_n}"] = recs
+    del init_params, batches
+    release()
+    return out
+
+
+def phase19() -> dict:
+    """The mesh paths, the offload and the launcher on the card; every
+    gate checked after every part has run."""
+    say("== phase 19: Ulysses prefill (starcoder2-7b, minicpm3-4b), the MoE "
+        "island (qwen2-moe-a2.7b), xPic's Cluster-Booster offload and the "
+        "training launcher")
+    t0 = time.perf_counter()
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_p19_"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    launches = {}
+    for tag, extra in (("fail", ["--fail-at", str(P19["launch_fail"])]),
+                       ("clean", [])):
+        launches[tag] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train", *P19["launch"],
+             *extra, "--run-dir", str(root / f"launch_{tag}")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+            cwd=ROOT)
+    failures, out = [], {}
+    world = P19World(root)
+    try:
+        for part, arch in zip("ab", P19["seqpar"]):
+            t1 = time.perf_counter()
+            cfg, params, tokens, logits = p19_reference_prefill(arch)
+            say(f"  ({part}) {arch}: {cfg.n_layers} layers at published width, "
+                f"tp {P19_RANKS}, seq_parallel, data 1 x model {P19_RANKS}, "
+                f"B {P19['batch']} x T {P19['seq']}")
+            recs = world.run("prefill", arch=arch, params=params,
+                             tokens=tokens, logits=logits)
+            out[part] = p19_check_prefill(f"({part}) {arch}", cfg, recs,
+                                          logits, failures)
+            del params, tokens, logits
+            release()
+            out[part]["seconds"] = time.perf_counter() - t1
+            say(f"    ({part}: {out[part]['seconds']:.1f} s)")
+        t1 = time.perf_counter()
+        arch = P19["moe_arch"]
+        cfg, params, tokens, logits = p19_reference_prefill(arch, moe=True)
+        say(f"  (c) {arch}: the island's prefill, {cfg.n_layers} layers, data "
+            f"1 x model {P19_RANKS}, B {P19['batch']} x T {P19['seq']}")
+        recs = world.run("prefill", arch=arch, params=params, tokens=tokens,
+                         logits=logits, moe=True)
+        # the reference bounds its sequence-parallel logits only; the
+        # island's 24 layers of bf16 expert blocks are held by their tokens
+        # (3.163e-02 relative to one process, reported)
+        out["c"] = {"prefill": p19_check_prefill(f"(c) {arch}", cfg, recs,
+                                                 logits, failures,
+                                                 rel_gate=False)}
+        del params, tokens, logits
+        release()
+        say(f"  (c) {arch} at depth 1, {P19['train_steps']} AdamW steps: data "
+            f"1 x model {P19_RANKS} twice, then data {P19_RANKS} x model 1")
+        out["c"]["train"] = p19_moe_train(world, failures)
+        out["c"]["seconds"] = time.perf_counter() - t1
+        say(f"    (c: {out['c']['seconds']:.1f} s)")
+        t1 = time.perf_counter()
+        say(f"  (d) xPic: {P19['xpic_part']} particles, grid "
+            f"{P19['xpic_grid']}, {P19['xpic_steps']} steps; field solve on "
+            f"the Cluster (rank 0, CPU), particle push offloaded to the "
+            f"Booster (rank 1, the card) under TaskRuntime.run, a transient "
+            f"Booster failure armed in step {P19['xpic_fail']}")
+        recs = world.run("xpic")
+        cl, bo = recs
+        for fail in (True, False):
+            c, b = cl[f"fail_{fail}"], bo[f"fail_{fail}"]
+            say(f"    {'with' if fail else 'without'} the failure: energy "
+                f"{c['energy'][0]:.6f} -> {c['energy'][-1]:.6f}; retried "
+                f"{c['retried']}, failed {c['failed']}; push on "
+                f"{b['booster_device']}; fabric: Cluster sent "
+                f"{c['bytes_sent']} B, received {c['bytes_received']} B in "
+                f"{c['seconds']:.3f} s, Booster sent {b['bytes_sent']} B, "
+                f"received {b['bytes_received']} B in {b['seconds']:.3f} s; "
+                f"loop {c['wall_s']:.3f} s")
+        if cl["fail_True"]["energy"] != cl["fail_False"]["energy"]:
+            failures.append("(d) the energies with the failure differ from "
+                            "the run without")
+        if (cl["fail_True"]["retried"] < 1 or cl["fail_True"]["failed"]
+                or bo["fail_True"]["retried"] < 1):
+            failures.append("(d) want retried >= 1 and failed 0")
+        if not str(bo["fail_True"]["booster_device"]).startswith("cuda"):
+            failures.append("(d) the particle push did not run on the card")
+        out["d"] = {"ranks": recs, "seconds": time.perf_counter() - t1}
+    finally:
+        world.close()
+        for p in launches.values():
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=P19_PART_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    say("  (e) python -m repro_torch.launch.train " + " ".join(P19["launch"])
+        + f" [--fail-at {P19['launch_fail']}], on the card")
+    reports = {}
+    for tag, p in launches.items():
+        stdout, stderr = p.communicate()
+        if p.returncode != 0:
+            failures.append(f"(e) the launcher ({tag}) exited {p.returncode}: "
+                            f"{stderr[-800:]}")
+            continue
+        reports[tag] = json.loads(stdout[stdout.index("{"):])
+        say(f"    {tag}: {json.dumps(reports[tag])}")
+    if len(reports) == 2:
+        f, c = reports["fail"], reports["clean"]
+        if f["failures"] != 1 or f["recoveries"] != 1:
+            failures.append(f"(e) failures {f['failures']}, recoveries "
+                            f"{f['recoveries']}: want 1 and 1")
+        if f["last_loss"] != c["last_loss"]:
+            failures.append(f"(e) last loss {f['last_loss']} != the run "
+                            f"without a failure's {c['last_loss']}")
+    out["e"] = reports
+    out["seconds"] = time.perf_counter() - t0
+    say(f"  phase 19 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 19 gates failed:\n  " + "\n  ".join(failures))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -4362,6 +5135,7 @@ def main() -> int:
             kernels[name]["repair_cases"] = repairs[kind]
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         kernels[name]["repair_widths"] = repairs["flash"]
+        kernels[name]["repair_grid"] = repairs["flash_grid"]
     release()
     for phase, arch, names in ((11, "rwkv6-3b", ("wkv6_fwd", "wkv6_bwd")),
                                (12, "zamba2-2.7b", ("mamba2_ssd_fwd",
@@ -4449,6 +5223,23 @@ def main() -> int:
         "psum_s": [r["psum_s"] for r in p18["collectives"]["ranks"]],
         "tasks": p18["tasks"], "step": p18["step"],
         "compression": p18["compression"], "seconds": p18["seconds"]}
+
+    p19 = phase19()
+    for kind in ("fwd", "bwd"):
+        name = f"flash_attention_{kind}"
+        kernels[name]["launches_phase19"] = {
+            "a_" + P19["seqpar"][0]: [r["fwd"] if kind == "fwd" else 0
+                                      for r in p19["a"]["ranks"]],
+            "b_" + P19["seqpar"][1]: [r["fwd"] if kind == "fwd" else 0
+                                      for r in p19["b"]["ranks"]],
+            "c_prefill": [r["fwd"] if kind == "fwd" else 0
+                          for r in p19["c"]["prefill"]["ranks"]],
+            "c_train": {mesh: [run[kind] for r in recs for run in r["runs"]]
+                        for mesh, recs in p19["c"]["train"].items()
+                        if mesh != "single"}}
+    kernels["flash_attention_fwd"]["phase19"] = {
+        part: {k: v for k, v in p19[part].items() if k != "ranks"}
+        for part in ("a", "b")}
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

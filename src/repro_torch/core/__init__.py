@@ -1,7 +1,5 @@
-"""The paper's primary contribution: DEEP-ER I/O + resiliency stack.
-
-``core/offload.py`` (the Cluster/Booster split over mesh sub-grids) waits
-for a later slice of ROADMAP.md."""
+"""The paper's primary contribution: DEEP-ER I/O + resiliency stack, and
+``core/offload.py``, the Cluster/Booster split over mesh sub-grids."""
 
 from repro_torch.core.scr import SCRManager, Strategy, CheckpointRecord, FabricSpec, EXTOLL, TPU_ICI
 from repro_torch.core.nam import NAMDevice, make_nam

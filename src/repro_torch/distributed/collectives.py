@@ -19,6 +19,34 @@ device, so ranks that share a card run on a gloo group; gloo's exchange
 and sums then go through host staging buffers (a card tensor is copied to
 the host, sent, received and copied back), and each combine runs on the
 card.  An NCCL group takes card tensors as they are.
+
+The collectives of an island (a ``shard_map`` body of the reference),
+each over one group (a mesh axis: :meth:`repro_torch.distributed.mesh.Mesh.group`),
+with JAX's ``tiled=True`` layout and a ``torch.autograd.Function`` each,
+whose backward is the transpose JAX gives the same collective:
+
+* :func:`all_to_all` (``jax.lax.all_to_all``): split ``split_axis`` into
+  one chunk per rank, chunk ``j`` to rank ``j``, the received chunks
+  concatenated along ``concat_axis`` in rank order; its backward is the
+  all-to-all with the two axes swapped.  ``all_to_all_single`` splits
+  and joins dim 0 only, so the split axis is moved to the front, the
+  tensor made contiguous, and the chunks put back in place;
+* :func:`all_gather` (``tiled``): every rank's block concatenated along
+  ``axis``; backward, the summed gradient's own block;
+* :func:`psum_scatter` (``tiled``): the sum over the group, rank ``i``
+  keeping block ``i`` of ``axis``; backward, the all-gather;
+* :func:`psum`: the sum; backward, the sum (JAX's transpose of ``psum``
+  for values that differ across the group).
+
+Megatron's pair for a tensor-parallel island that trains, the reference's
+``psum`` under ``shard_map(check_rep=False)`` made explicit:
+:func:`copy_to_group` (identity forward, sum backward: where a replicated
+input enters) and :func:`reduce_from_group` (sum forward, identity
+backward: where the partial output leaves).  :func:`pmean` is the mean
+whose backward is the mean, for statistics every rank's loss reads
+(the router's density and mean probability over the data ranks), and
+:func:`average_gradients` the data-parallel mean of a gradient tree, in
+place, leaf by leaf in the tree's fixed order.
 """
 
 from __future__ import annotations
@@ -31,7 +59,9 @@ import torch.distributed as dist
 
 from repro_torch.kernels import ops
 
-__all__ = ["grid_groups", "hierarchical_psum", "xor_all_reduce",
+__all__ = ["all_gather", "all_to_all", "average_gradients", "copy_to_group",
+           "grid_groups", "hierarchical_psum", "pmean", "psum",
+           "psum_scatter", "reduce_from_group", "xor_all_reduce",
            "xor_reduce_to"]
 
 
@@ -143,3 +173,213 @@ def grid_groups(n_outer: int, n_inner: int, backend: Optional[str] = None
         if me % n_inner == i:
             outer = g
     return inner, outer
+
+
+# ---------------------------------------------------------------------- #
+# island collectives (tiled, differentiable)
+# ---------------------------------------------------------------------- #
+
+
+def _size(group) -> int:
+    return dist.get_world_size(group)
+
+
+def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int
+         ) -> torch.Tensor:
+    n = _size(group)
+    if x.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    staged = _staged(x, group)
+    # (n, chunk, rest...) with the split axis in front, contiguous
+    front = x.movedim(split_axis, 0)
+    send = front.reshape((n, front.shape[0] // n) + front.shape[1:])
+    send = (send.cpu() if staged else send).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=group)
+    if staged:
+        recv = recv.to(x.device)
+    chunks = [c.movedim(0, split_axis) for c in recv.unbind(0)]
+    return torch.cat(chunks, dim=concat_axis)
+
+
+def _gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    staged = _staged(x, group)
+    send = (x.cpu() if staged else x).contiguous()
+    parts = [torch.empty_like(send) for _ in range(_size(group))]
+    dist.all_gather(parts, send, group=group)
+    out = torch.cat(parts, dim=axis)
+    return out.to(x.device) if staged else out
+
+
+def _sum(x: torch.Tensor, group) -> torch.Tensor:
+    return _all_reduce(x.contiguous(), group)
+
+
+def _scatter_sum(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    n = _size(group)
+    if x.shape[axis] % n:
+        raise ValueError(f"psum_scatter: axis {axis} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    block = x.shape[axis] // n
+    return _sum(x, group).narrow(axis, dist.get_rank(group) * block,
+                                 block).contiguous()
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, split_axis, concat_axis):
+        ctx.args = (group, split_axis, concat_axis)
+        return _a2a(x, group, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, split_axis, concat_axis = ctx.args
+        return _a2a(g, group, concat_axis, split_axis), None, None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        return _gather(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis = ctx.args
+        return _scatter_sum(g, group, axis), None, None
+
+
+class _PsumScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, axis):
+        ctx.args = (group, axis)
+        return _scatter_sum(x, group, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, axis = ctx.args
+        return _gather(g, group, axis), None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group), None
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return _sum(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Pmean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _sum(x, group) / _size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum(g, ctx.group) / _size(ctx.group), None
+
+
+def _one(group) -> bool:
+    return _size(group) == 1
+
+
+def all_to_all(x: torch.Tensor, group, split_axis: int, concat_axis: int
+               ) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, axis, split_axis, concat_axis, tiled=True)``
+    over ``group``."""
+    if _one(group):
+        return x
+    return _AllToAll.apply(x, group, split_axis, concat_axis)
+
+
+def all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """``jax.lax.all_gather(x, axis_name, axis=axis, tiled=True)``."""
+    if _one(group):
+        return x
+    return _AllGather.apply(x, group, axis)
+
+
+def psum_scatter(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    """``jax.lax.psum_scatter(x, axis_name, scatter_dimension=axis,
+    tiled=True)``."""
+    if _one(group):
+        return x
+    return _PsumScatter.apply(x, group, axis)
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """``jax.lax.psum(x, axis_name)``; its backward is the sum."""
+    if _one(group):
+        return x
+    return _Psum.apply(x, group)
+
+
+def copy_to_group(x: torch.Tensor, group) -> torch.Tensor:
+    """A replicated input entering a tensor-parallel island: identity
+    forward, the gradient summed over ``group`` backward."""
+    if _one(group):
+        return x
+    return _CopyTo.apply(x, group)
+
+
+def reduce_from_group(x: torch.Tensor, group) -> torch.Tensor:
+    """A partial output leaving the island: summed over ``group`` forward,
+    the gradient passed through backward."""
+    if _one(group):
+        return x
+    return _ReduceFrom.apply(x, group)
+
+
+def pmean(x: torch.Tensor, group) -> torch.Tensor:
+    """The mean over ``group``; backward, the mean of the gradients (each
+    rank's loss reads the same mean)."""
+    if _one(group):
+        return x
+    return _Pmean.apply(x, group)
+
+
+def average_gradients(grads, group):
+    """The mean over ``group`` of every leaf of a gradient tree (nested
+    dicts and lists), in place: one all-reduce per leaf in the tree's
+    order, so no second copy of the tree is held on the device.  Returns
+    the tree."""
+    from repro_torch.optim.adamw import tree_leaves
+
+    n = _size(group)
+    if n == 1:
+        return grads
+    for g in tree_leaves(grads):
+        if _staged(g, group):
+            host = g.cpu()
+            dist.all_reduce(host, group=group)
+            g.copy_(host)
+        else:
+            dist.all_reduce(g, group=group)
+        g.div_(n)
+    return grads

@@ -199,9 +199,10 @@ flash_fwd_kernel(const T* __restrict__ q,   // (B, Tq, Hq, D)
                  float* __restrict__ lse,   // (B, Hq, Tq)
                  int tq, int tk, int hq, int hkv, int d, int dv, float scale,
                  int causal, int prefix_len) {
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tiles = (tq + kTile - 1) / kTile;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kTile;
+  const int h = static_cast<int>(blockIdx.x / tiles % hq);
+  const int b = static_cast<int>(blockIdx.x / tiles / hq);
   const int hk = h / (hq / hkv);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -332,9 +333,10 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int tq, int tk, int hq, int hkv, int d,
                     int dv, float scale, int causal, int prefix_len) {
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tiles = (tq + kTile - 1) / kTile;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kTile;
+  const int h = static_cast<int>(blockIdx.x / tiles % hq);
+  const int b = static_cast<int>(blockIdx.x / tiles / hq);
   const int hk = h / (hq / hkv);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -436,9 +438,10 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       T* __restrict__ dk, T* __restrict__ dv, int tq, int tk,
                       int hq, int hkv, int d, int d_v, float scale, int causal,
                       int prefix_len) {
-  const int k0 = blockIdx.x * kTile;
-  const int hk = blockIdx.y;
-  const int b = blockIdx.z;
+  const int tiles = (tk + kTile - 1) / kTile;
+  const int k0 = static_cast<int>(blockIdx.x % tiles) * kTile;
+  const int hk = static_cast<int>(blockIdx.x / tiles % hkv);
+  const int b = static_cast<int>(blockIdx.x / tiles / hkv);
   const int g = hq / hkv;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
@@ -646,10 +649,12 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
                       int tq, int tk, int hq, int hkv, int d, int dv, float scale,
                       int causal, int prefix_len, int slices) {
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y / slices;
-  const int b = blockIdx.z;
-  const int c_lo = (blockIdx.y % slices) * kSliceW;
+  const int tiles = (tq + kTile - 1) / kTile;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kTile;
+  const int y = static_cast<int>(blockIdx.x / tiles % (static_cast<unsigned>(hq) * slices));
+  const int h = y / slices;
+  const int b = static_cast<int>(blockIdx.x / tiles / (static_cast<unsigned>(hq) * slices));
+  const int c_lo = (y % slices) * kSliceW;
   const int c_n = min(kSliceW, dv - c_lo);
   const int hk = h / (hq / hkv);
   const int warp = threadIdx.x / 32;
@@ -748,10 +753,12 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dq, int tq, int tk, int hq, int hkv, int d, int dv,
                      float scale, int causal, int prefix_len, int slices) {
-  const int q0 = blockIdx.x * kTile;
-  const int h = blockIdx.y / slices;
-  const int b = blockIdx.z;
-  const int c_lo = (blockIdx.y % slices) * kSliceW;
+  const int tiles = (tq + kTile - 1) / kTile;
+  const int q0 = static_cast<int>(blockIdx.x % tiles) * kTile;
+  const int y = static_cast<int>(blockIdx.x / tiles % (static_cast<unsigned>(hq) * slices));
+  const int h = y / slices;
+  const int b = static_cast<int>(blockIdx.x / tiles / (static_cast<unsigned>(hq) * slices));
+  const int c_lo = (y % slices) * kSliceW;
   const int c_n = min(kSliceW, d - c_lo);
   const int hk = h / (hq / hkv);
   const int warp = threadIdx.x / 32;
@@ -846,11 +853,14 @@ flash_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        T* __restrict__ dk, T* __restrict__ dv, int tq, int tk, int hq,
                        int hkv, int d, int d_v, float scale, int causal, int prefix_len,
                        int dk_slices, int dv_slices) {
-  const int k0 = blockIdx.x * kTile;
+  const int tiles = (tk + kTile - 1) / kTile;
+  const int k0 = static_cast<int>(blockIdx.x % tiles) * kTile;
   const int slices = dk_slices + dv_slices;
-  const int hk = blockIdx.y / slices;
-  const int b = blockIdx.z;
-  const int sl = blockIdx.y % slices;
+  const unsigned hs = static_cast<unsigned>(hkv) * slices;
+  const int y = static_cast<int>(blockIdx.x / tiles % hs);
+  const int hk = y / slices;
+  const int b = static_cast<int>(blockIdx.x / tiles / hs);
+  const int sl = y % slices;
   const bool is_dk = sl < dk_slices;
   const int width = is_dk ? d : d_v;
   const int c_lo = (is_dk ? sl : sl - dk_slices) * kSliceW;
@@ -1337,8 +1347,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_full = [&](int s) { return bars + 8 * (1 + kFwdStages + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * kFwdStages + s); };
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * S::kRows;
+  const int n_blocks = (tq + S::kRows - 1) / S::kRows;
+  const int h = static_cast<int>(blockIdx.x % hq);
+  const unsigned hb = static_cast<unsigned>(hq) * (gridDim.x / (static_cast<unsigned>(hq) * n_blocks));
+  const int b = static_cast<int>(blockIdx.x % hb / hq);
+  const int q0 = (n_blocks - 1 - static_cast<int>(blockIdx.x / hb)) * S::kRows;
   const int hk = h / (hq / hkv);
   const int q_off = tk - tq;
   // causal: the keys up to the last row's diagonal, and the prefix
@@ -1548,8 +1561,11 @@ dq_kernel(const __grid_constant__ CUtensorMap q_map,
   auto v_full = [&](int s) { return bars + 8 * (1 + kSt + s); };
   auto empty = [&](int s) { return bars + 8 * (1 + 2 * kSt + s); };
 
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * S::kRows;
+  const int n_blocks = (tq + S::kRows - 1) / S::kRows;
+  const int h = static_cast<int>(blockIdx.x % hq);
+  const unsigned hb = static_cast<unsigned>(hq) * (gridDim.x / (static_cast<unsigned>(hq) * n_blocks));
+  const int b = static_cast<int>(blockIdx.x % hb / hq);
+  const int q0 = (n_blocks - 1 - static_cast<int>(blockIdx.x / hb)) * S::kRows;
   const int hk = h / (hq / hkv);
   const int q_off = tk - tq;
   const int k_end = causal ? min(tk, max(prefix_len, min(q0 + S::kRows, tq) + q_off)) : tk;
@@ -1724,8 +1740,10 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   // generic pointer to the stats, for plain loads and stores
   float* stats_p = reinterpret_cast<float*>(smem_raw + (stats - smem_addr(smem_raw)));
 
-  const int hk = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * S::kRows;
+  const int hk = static_cast<int>(blockIdx.x % hkv);
+  const unsigned hb = gridDim.x / ((tk + S::kRows - 1) / S::kRows);
+  const int b = static_cast<int>(blockIdx.x % hb / hkv);
+  const int k0 = static_cast<int>(blockIdx.x / hb) * S::kRows;
   const int g = hq / hkv;
   const int q_off = tk - tq;
   // the first q tile with a row that sees any of these keys (every row
@@ -1876,6 +1894,15 @@ bool wide(int d, int dv) { return d > kSliceW || dv > kSliceW; }
 
 int slices_of(int width) { return (width + kSliceW - 1) / kSliceW; }
 
+// Every launcher folds its blocks (row tiles, heads or column slices, batch)
+// into grid x, whose limit is 2^31 - 1 (y and z stop at 65,535): the grid's
+// block count, or 0 past that limit.  Grid x runs fastest, so the blocks
+// keep the order the three-dimensional grid gave them.
+unsigned grid_x(long long a, long long b, long long c) {
+  const long long n = a * b * c;
+  return n > 2147483647LL ? 0u : static_cast<unsigned>(n);
+}
+
 // opt in to more than 48 KB of dynamic shared memory where needed
 template <typename K>
 int allow_smem(K kernel, size_t smem) {
@@ -1899,7 +1926,8 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, int b,
         int prefix_len, cudaStream_t stream) {
   auto kernel = flash_fwd_kernel<T, NC>;
   const size_t smem = f32_smem(d, dv, false);
-  const dim3 grid((tq + kTile - 1) / kTile, hq, b);
+  const unsigned grid = grid_x((tq + kTile - 1) / kTile, hq, b);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   const int err = allow_smem(kernel, smem);
   if (err) return err;
   kernel<<<grid, kThreads, smem, stream>>>(
@@ -1926,7 +1954,9 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
 
   auto dq_kernel = flash_bwd_dq_kernel<T, NC>;
   const size_t dq_smem = f32_smem(d, d_v, true);
-  const dim3 dq_grid((tq + kTile - 1) / kTile, hq, b);
+  const unsigned dq_grid = grid_x((tq + kTile - 1) / kTile, hq, b);
+  const unsigned kv_grid = grid_x((tk + kTile - 1) / kTile, hkv, b);
+  if (dq_grid == 0 || kv_grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   err = allow_smem(dq_kernel, dq_smem);
   if (err) return err;
   dq_kernel<<<dq_grid, kThreads, dq_smem, stream>>>(
@@ -1937,7 +1967,6 @@ int bwd(const void* q, const void* k, const void* v, const void* o,
 
   auto kv_kernel = flash_bwd_dkdv_kernel<T, NC>;
   const size_t kv_smem = f32_smem(d, d_v, true);
-  const dim3 kv_grid((tk + kTile - 1) / kTile, hkv, b);
   err = allow_smem(kv_kernel, kv_smem);
   if (err) return err;
   kv_kernel<<<kv_grid, kThreads, kv_smem, stream>>>(
@@ -1951,13 +1980,11 @@ int fwd_wide(const void* q, const void* k, const void* v, void* o, float* lse, i
              int tq, int tk, int hq, int hkv, int d, int dv, float scale, int causal,
              int prefix_len, cudaStream_t stream) {
   const int slices = slices_of(dv);
-  if (static_cast<long long>(hq) * slices > 65535 || b > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const unsigned grid = grid_x((tq + kTile - 1) / kTile, static_cast<long long>(hq) * slices, b);
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = flash_wide_fwd_kernel<T>;
   const int err = allow_smem(kernel, kWideSmem);
   if (err) return err;
-  const dim3 grid((tq + kTile - 1) / kTile, hq * slices, b);
   kernel<<<grid, kThreads, kWideSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len, slices);
@@ -1971,10 +1998,11 @@ int bwd_wide(const void* q, const void* k, const void* v, const void* o,
              float scale, int causal, int prefix_len, cudaStream_t stream) {
   const int dq_slices = slices_of(d);
   const int kv_slices = slices_of(d) + slices_of(d_v);
-  if (static_cast<long long>(hq) * dq_slices > 65535 ||
-      static_cast<long long>(hkv) * kv_slices > 65535 || b > 65535) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const unsigned dq_grid =
+      grid_x((tq + kTile - 1) / kTile, static_cast<long long>(hq) * dq_slices, b);
+  const unsigned kv_grid =
+      grid_x((tk + kTile - 1) / kTile, static_cast<long long>(hkv) * kv_slices, b);
+  if (dq_grid == 0 || kv_grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const T* vt = static_cast<const T*>(v);
@@ -1989,8 +2017,7 @@ int bwd_wide(const void* q, const void* k, const void* v, const void* o,
   auto dq_kernel = flash_wide_dq_kernel<T>;
   err = allow_smem(dq_kernel, kWideSmem);
   if (err) return err;
-  dq_kernel<<<dim3((tq + kTile - 1) / kTile, hq * dq_slices, b), kThreads, kWideSmem,
-              stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq,
+  dq_kernel<<<dq_grid, kThreads, kWideSmem, stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dq), tq, tk, hq,
                         hkv, d, d_v, scale, causal, prefix_len, dq_slices);
   err = static_cast<int>(cudaGetLastError());
   if (err) return err;
@@ -1998,8 +2025,7 @@ int bwd_wide(const void* q, const void* k, const void* v, const void* o,
   auto kv_kernel = flash_wide_dkdv_kernel<T>;
   err = allow_smem(kv_kernel, kWideSmem);
   if (err) return err;
-  kv_kernel<<<dim3((tk + kTile - 1) / kTile, hkv * kv_slices, b), kThreads, kWideSmem,
-              stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dk),
+  kv_kernel<<<kv_grid, kThreads, kWideSmem, stream>>>(qt, kt, vt, got, lse, delta, static_cast<T*>(dk),
                         static_cast<T*>(dv), tq, tk, hq, hkv, d, d_v, scale, causal,
                         prefix_len, slices_of(d), slices_of(d_v));
   return static_cast<int>(cudaGetLastError());
@@ -2089,11 +2115,13 @@ int fwd_bf16(const void* q, const void* k, const void* v, void* o, float* lse, i
       !tensor_map(&mv, v, b, tk, hkv, dv, hopper::kTile)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const unsigned grid = grid_x(hq, b, blocks_of(tq, kRows));
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = hopper::fwd_kernel<D, DV>;
   const size_t smem = hopper::fwd_smem<D, DV>();
   const int err = allow_smem(kernel, smem);
   if (err) return err;
-  kernel<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH, smem, stream>>>(
+  kernel<<<grid, hopper::kThreadsH, smem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, tq, tk, hq, hkv, dv,
       scale * hopper::kLog2e, causal, prefix_len);
   return static_cast<int>(cudaGetLastError());
@@ -2105,6 +2133,9 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
              void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v,
              float scale, int causal, int prefix_len, cudaStream_t stream) {
   constexpr int kRows = hopper::Split<D, DV>::kRows;
+  const unsigned dq_grid = grid_x(hq, b, blocks_of(tq, kRows));
+  const unsigned kv_grid = grid_x(hkv, b, blocks_of(tk, kRows));
+  if (dq_grid == 0 || kv_grid == 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long rows = static_cast<long long>(b) * tq * hq;
   const long long per_block = hopper::kDeltaWarps * hopper::kDeltaRows;
   hopper::delta_kernel<<<static_cast<unsigned>((rows + per_block - 1) / per_block),
@@ -2124,7 +2155,7 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   auto dq_k = hopper::dq_kernel<D, DV>;
   err = allow_smem(dq_k, hopper::dq_smem<D, DV>());
   if (err) return err;
-  dq_k<<<dim3(hq, b, blocks_of(tq, kRows)), hopper::kThreadsH,
+  dq_k<<<dq_grid, hopper::kThreadsH,
          hopper::dq_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), tq, tk, hq, hkv, d,
       scale, scale * hopper::kLog2e, causal, prefix_len);
@@ -2141,7 +2172,7 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   auto kv_k = hopper::dkdv_kernel<D, DV>;
   err = allow_smem(kv_k, hopper::dkdv_smem<D, DV>());
   if (err) return err;
-  kv_k<<<dim3(hkv, b, blocks_of(tk, kRows)), hopper::kThreadsKV,
+  kv_k<<<kv_grid, hopper::kThreadsKV,
          hopper::dkdv_smem<D, DV>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dk),
       static_cast<__nv_bfloat16*>(dv), tq, tk, hq, hkv, d, d_v, scale,

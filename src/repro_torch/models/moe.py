@@ -18,8 +18,22 @@ order; a pair past its expert's capacity is dropped.  Every op of the
 dispatch has a deterministic CUDA implementation, so training under
 ``torch.use_deterministic_algorithms(True)`` repeats bit for bit.
 
-With a mesh the reference runs a ``shard_map`` island; here a mesh
-raises, naming ROADMAP.md item 1.4.  There is no ``paged_decode_step``
+With a mesh (:class:`repro_torch.distributed.mesh.Mesh`, one rank in
+each process) the reference's ``shard_map`` island runs on each rank:
+the rank takes its rows of the batch over (``pod``, ``data``), holds its
+block of every expert's hidden dim and of the shared experts' over
+``model`` (whole weights are read through views, or
+:func:`island_params` keeps only the blocks), and the routed and shared
+outputs end in exactly one sum over ``model``.  The replicated inputs
+that enter the island (the tokens, the routing weights, qwen2's shared
+gate) go through :func:`repro_torch.distributed.collectives.copy_to_group`
+and the partial output leaves through ``reduce_from_group``: Megatron's
+pair, so the gradients of everything before the island see every rank's
+experts.  The router's aux loss is not linear in the batch, so its
+``density`` and mean probability are averaged over the data ranks
+(``pmean``) before their product: every rank gets the whole batch's aux.
+``forward(mesh=...)`` returns the rank's rows of the logits.  There is
+no ``paged_decode_step``
 (the reference has none for this family): MoE serves on the contiguous
 scheduler.
 """
@@ -33,10 +47,10 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh import DATA_AXES, MODEL_AXIS
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-
-_MESH_WAITS = "MoE on a mesh (the shard_map island) waits for ROADMAP.md item 1.4"
 
 
 # ---------------------------------------------------------------------- #
@@ -139,10 +153,11 @@ def _top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     return w[..., :k], ids[..., :k]
 
 
-def _route(cfg: ArchConfig, logits: torch.Tensor
+def _route(cfg: ArchConfig, logits: torch.Tensor, data_group=None
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router: (B, T, E) logits -> top-k (ids, weights) + the switch-style
-    load-balance aux loss."""
+    load-balance aux loss (over the whole batch: with ``data_group`` its
+    statistics are averaged over the data ranks first)."""
     m = cfg.moe
     e = cfg.padded_experts
     if e != m.n_routed:   # padded experts: unroutable
@@ -153,6 +168,9 @@ def _route(cfg: ArchConfig, logits: torch.Tensor
     # E * sum_e fraction_e * prob_e
     density = _one_hot(ids, e, torch.float32).sum(-2).mean(dim=(0, 1))
     prob_mean = probs.mean(dim=(0, 1))
+    if data_group is not None:
+        density = C.pmean(density, data_group)
+        prob_mean = C.pmean(prob_mean, data_group)
     aux = m.n_routed * torch.sum(density / m.top_k * prob_mean)
     return ids, w.to(logits.dtype), aux
 
@@ -249,23 +267,66 @@ def _expert_weights(p: Dict[str, Any], cfg: ArchConfig, cd: torch.dtype):
     return p["wg"].to(cd), p["wu"].to(cd), p["wd"].to(cd)
 
 
+def island_params(params, cfg: ArchConfig, mesh):
+    """This rank's parameters for a mesh: the blocks over ``model`` of the
+    experts' and shared experts' hidden dims (copies), every other leaf as
+    given."""
+    out = dict(params)
+    layers = dict(params["moe_layers"])
+    axes = L.axes_of(L.stacked(moe_ffn_table(cfg), cfg.n_layers
+                               - cfg.moe.n_dense_layers))
+    layers["moe"] = mesh.local_tree(params["moe_layers"]["moe"], axes,
+                                    ("d_expert", "d_ff"))
+    out["moe_layers"] = layers
+    return out
+
+
+def _island_weights(p: Dict[str, Any], cfg: ArchConfig, cd: torch.dtype,
+                    mesh):
+    """The rank's blocks of the expert weights (views of whole ones)."""
+    de = cfg.moe.d_expert
+    wg, wu, wd = _expert_weights(p, cfg, cd)
+    wg = mesh.block(wg, wg.dim() - 1, de)
+    wu = None if wu is None else mesh.block(wu, 2, de)
+    return wg, wu, mesh.block(wd, 1, de)
+
+
 def moe_ffn(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig, mesh=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Routed + shared expert FFN over (B, T, D).  Returns (y, aux_loss)."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_WAITS)
+    """Routed + shared expert FFN over (B, T, D).  Returns (y, aux_loss).
+    With a mesh, ``x`` is the rank's rows and the island's one sum over
+    ``model`` ends it."""
     cd = L.torch_dtype(cfg.compute_dtype)
     xc = x.to(cd)
     m = cfg.moe
     t = x.shape[1]
     capacity = max(1, int(t * m.top_k / m.n_routed * m.capacity_factor))
     logits = xc @ p["router"].to(cd)
-    ids, w, aux = _route(cfg, logits)
-    wg, wu, wd = _expert_weights(p, cfg, cd)
-    y = _dispatch_compute_combine(xc, ids, w, wg, wu, wd, cfg, capacity)
+    if mesh is None:
+        ids, w, aux = _route(cfg, logits)
+        wg, wu, wd = _expert_weights(p, cfg, cd)
+        y = _dispatch_compute_combine(xc, ids, w, wg, wu, wd, cfg, capacity)
+        if m.n_shared:
+            y = y + _shared_ffn(_shared_params(p, cfg, cd), xc, cfg)
+        return y.to(x.dtype), aux
+    data = (mesh.group(DATA_AXES) if mesh.axis_size(DATA_AXES) > 1 else None)
+    ids, w, aux = _route(cfg, logits, data)
+    group = mesh.group(MODEL_AXIS)
+    xi = C.copy_to_group(xc, group)
+    y = _dispatch_compute_combine(xi, ids, C.copy_to_group(w, group),
+                                  *_island_weights(p, cfg, cd, mesh), cfg,
+                                  capacity)
     if m.n_shared:
-        y = y + _shared_ffn(_shared_params(p, cfg, cd), xc, cfg)
-    return y.to(x.dtype), aux
+        sp = _shared_params(p, cfg, cd)
+        f = m.n_shared * m.d_expert
+        sp = {"wg": mesh.block(sp["wg"], 1, f), "wu": mesh.block(sp["wu"], 1, f),
+              "wd": mesh.block(sp["wd"], 0, f),
+              **({"shared_gate_w": C.copy_to_group(sp["shared_gate_w"], group)}
+                 if m.shared_gate else {})}
+        y = y + _shared_ffn(sp, xi, cfg)
+    # the partial outputs summed in float32 and rounded once, as one
+    # process's matmuls over the whole hidden dims round their sums once
+    return C.reduce_from_group(y.float(), group).to(x.dtype), aux
 
 
 def moe_ffn_dense_all(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig
@@ -295,10 +356,10 @@ def moe_ffn_dense_all(p: Dict[str, Any], x: torch.Tensor, cfg: ArchConfig
 # ---------------------------------------------------------------------- #
 
 
-def _moe_layer(lp, h, cfg, cos, sin):
+def _moe_layer(lp, h, cfg, cos, sin, mesh=None):
     h = h + T.attention_block(lp["attn"], L.apply_norm(cfg, h, lp["ln1"]),
                               cfg, cos, sin)
-    y, aux = moe_ffn(lp["moe"], L.apply_norm(cfg, h, lp["ln2"]), cfg)
+    y, aux = moe_ffn(lp["moe"], L.apply_norm(cfg, h, lp["ln2"]), cfg, mesh)
     return h + y, aux
 
 
@@ -310,10 +371,11 @@ def forward(
     mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Token sequence -> next-token logits, and ``{"router_aux": the mean
-    of the MoE layers' aux losses}``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_WAITS)
+    of the MoE layers' aux losses}``.  With a mesh: the rank's rows of the
+    batch over the data axes, and of the logits."""
     tokens = batch["tokens"]
+    if mesh is not None:
+        tokens = mesh.shard_rows(tokens)
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens, cd)
     t = x.shape[1]
@@ -332,10 +394,10 @@ def forward(
     for li in range(cfg.n_layers - cfg.moe.n_dense_layers):
         lp = L.index_tree(params["moe_layers"], li)
         if use_remat:
-            x, aux = checkpoint(_moe_layer, lp, x, cfg, cos, sin,
+            x, aux = checkpoint(_moe_layer, lp, x, cfg, cos, sin, mesh,
                                 use_reentrant=False)
         else:
-            x, aux = _moe_layer(lp, x, cfg, cos, sin)
+            x, aux = _moe_layer(lp, x, cfg, cos, sin, mesh)
         auxes.append(aux)
     x = L.apply_norm(cfg, x, params["ln_f"])
     logits = L.lm_logits(x, params["lm_head"], cfg.vocab_size, cd)

@@ -20,7 +20,23 @@ paged path.
 ``forward(prefix_embeds=...)`` is the prefix-LM (paligemma): the prefix
 rows go in front of the token embeddings, attention sees them from every
 row (``prefix_len`` down to the flash kernel) and their logits are
-dropped.  The sequence-parallel forwards wait for ROADMAP.md item 1.4.
+dropped.
+
+``forward(mesh=...)`` with ``cfg.seq_parallel`` is the reference's
+Ulysses prefill (inference only), one rank of a
+:class:`repro_torch.distributed.mesh.Mesh` in each process: the rank
+takes its rows of the batch over (``pod``, ``data``) and its block of
+the sequence over ``model``, and keeps activations sequence-sharded
+through the layers.  Attention trades heads for tokens with two
+all-to-alls over ``model`` (K/V, or MLA's latent stream, all-gathered)
+and runs the rank's heads over the whole sequence through the flash
+kernel; ``wo`` is replicated (no sum).  The FFN is tensor-parallel over
+``model`` (all-gather the tokens, column/row blocks, reduce-scatter back
+to the rank's tokens) unless ``cfg.replicate_ffn``.  The rank's FFN
+blocks are views of whole weights, or the blocks themselves
+(:func:`seqpar_params` keeps only those).  It returns the rank's block
+of the logits, ``(B / data ranks, T / model ranks, V)``.  A mesh without
+``cfg.seq_parallel`` runs the plain forward, as the reference does.
 """
 
 from __future__ import annotations
@@ -31,6 +47,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh import MODEL_AXIS
 from repro_torch.kernels import ops
 from repro_torch.memory.codecs import (SCALE_SUFFIX, int8_dequantize,
                                        int8_quantize)
@@ -271,10 +289,8 @@ def forward(
     """Token (+ optional prefix embedding) sequence -> next-token
     logits of the tokens.  With ``remat`` each layer's activations are
     recomputed in the backward pass."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the sequence-parallel forwards (_forward_mla_seqpar, "
-            "_forward_gqa_seqpar) wait for ROADMAP.md item 1.4")
+    if cfg.seq_parallel and mesh is not None:
+        return _forward_seqpar(params, batch, cfg, mesh)
     tokens = batch["tokens"]
     cd = L.torch_dtype(cfg.compute_dtype)
     x = L.embed_tokens(params["embed"], tokens, cd)
@@ -299,6 +315,146 @@ def forward(
     if prefix_len:
         logits = logits[:, prefix_len:]
     return logits, {}
+
+
+# ---------------------------------------------------------------------- #
+# Ulysses sequence-parallel prefill (the reference's shard_map islands)
+# ---------------------------------------------------------------------- #
+
+
+def seqpar_params(params, cfg: ArchConfig, mesh):
+    """This rank's parameters for :func:`forward` on ``mesh``: the FFN
+    weights' blocks over ``model`` (copies), every other leaf as given
+    (the reference's ``_seqpar_layer_specs``: the FFN tensor-parallel
+    unless ``replicate_ffn``, the rest replicated)."""
+    if cfg.replicate_ffn:
+        return params
+    out = dict(params)
+    out["layers"] = mesh.local_tree(params["layers"],
+                                    L.axes_of(L.stacked(layer_table(cfg),
+                                                        cfg.n_layers)),
+                                    ("d_ff",))
+    return out
+
+
+def _mla_attn_ulysses(p, x, cfg: ArchConfig, t_loc: int, group, ti: int,
+                      tp: int):
+    """One MLA attention block on a sequence block (the reference's
+    ``_mla_attn_ulysses``)."""
+    m = cfg.mla
+    b = x.shape[0]
+    hq = cfg.padded_heads
+    h_loc = hq // tp
+    qk_dim = m.qk_nope_dim + m.qk_rope_dim
+    pos = ti * t_loc + torch.arange(t_loc, device=x.device)
+    cos, sin = L.rope_freqs(m.qk_rope_dim, cfg.rope_theta, pos)
+
+    cq = L.rmsnorm(x @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(b, t_loc, hq, qk_dim)
+    q = torch.cat([q[..., :m.qk_nope_dim],
+                   L.apply_rope(q[..., m.qk_nope_dim:], cos, sin)], dim=-1)
+    dkv = x @ p["w_dkv"]
+    ckv = L.rmsnorm(dkv[..., :m.kv_lora_rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(dkv[:, :, None, m.kv_lora_rank:], cos, sin)[:, :, 0]
+
+    # q: (b, T, h_loc, qk); the latents to the whole sequence
+    q = C.all_to_all(q, group, split_axis=2, concat_axis=1)
+    ckv_full = C.all_gather(ckv, group, axis=1)
+    krope_full = C.all_gather(k_rope, group, axis=1)
+
+    # only this rank's heads are expanded from the latent stream
+    heads = slice(ti * h_loc, (ti + 1) * h_loc)
+    w_uk = p["w_uk"].reshape(m.kv_lora_rank, hq, m.qk_nope_dim)[:, heads]
+    w_uv = p["w_uv"].reshape(m.kv_lora_rank, hq, m.v_head_dim)[:, heads]
+    k_nope = torch.einsum("btr,rhn->bthn", ckv_full, w_uk)
+    v = torch.einsum("btr,rhv->bthv", ckv_full, w_uv).contiguous()
+    t_full = k_nope.shape[1]
+    k = torch.cat([k_nope, krope_full[:, :, None, :].expand(
+        b, t_full, h_loc, m.qk_rope_dim)], dim=-1)
+    out = L.flash_attention(q, k, v, causal=True, scale=qk_dim ** -0.5)
+    out = C.all_to_all(out, group, split_axis=1, concat_axis=2)
+    return out.reshape(b, t_loc, hq * m.v_head_dim) @ p["wo"]
+
+
+def _gqa_attn_ulysses(p, x, cfg: ArchConfig, t_loc: int, group, ti: int,
+                      tp: int):
+    """Ulysses attention for GQA (the reference's ``_gqa_attn_ulysses``):
+    q all-to-all, the few kv heads all-gathered, each local q head mapped
+    to its kv head as ``(ti * h_loc + h) // g``."""
+    b = x.shape[0]
+    hq = cfg.padded_heads
+    hkv = cfg.padded_kv_heads
+    h_loc = hq // tp
+    dh = cfg.resolved_head_dim
+    pos = ti * t_loc + torch.arange(t_loc, device=x.device)
+    cos, sin = L.rope_freqs(cfg.rope_dim or dh, cfg.rope_theta, pos)
+    q = (x @ p["wq"]).reshape(b, t_loc, hq, dh)
+    k = (x @ p["wk"]).reshape(b, t_loc, hkv, dh)
+    v = (x @ p["wv"]).reshape(b, t_loc, hkv, dh)
+    if cfg.rope_theta > 0:
+        q = L.apply_rope(q, cos, sin)
+        k = L.apply_rope(k, cos, sin)
+    q = C.all_to_all(q, group, split_axis=2, concat_axis=1)
+    k = C.all_gather(k, group, axis=1)                   # (b, T, hkv, dh)
+    v = C.all_gather(v, group, axis=1)
+    kv_ids = (ti * h_loc + torch.arange(h_loc, device=x.device)) // (hq // hkv)
+    out = L.flash_attention(q, k.index_select(2, kv_ids),
+                            v.index_select(2, kv_ids), causal=True)
+    out = C.all_to_all(out, group, split_axis=1, concat_axis=2)
+    return out.reshape(b, t_loc, hq * dh) @ p["wo"]
+
+
+def _ffn_tp_island(p, x, cfg: ArchConfig, group, mesh):
+    """Tensor-parallel FFN fed by a sequence block: all-gather the tokens,
+    the rank's column / row blocks, reduce-scatter back to its tokens
+    (the reference's ``_ffn_tp_island``; ``replicate_ffn``: whole weights,
+    local rows only)."""
+    act = L.act_fn(cfg.act)
+    gated = cfg.act in ("swiglu", "geglu")
+    if cfg.replicate_ffn:
+        if gated:
+            return (act(x @ p["wg"]) * (x @ p["wu"])) @ p["wd"]
+        return act(x @ p["wi"]) @ p["wd"]
+    f = cfg.d_ff
+    xf = C.all_gather(x, group, axis=1)                  # (b, T, D)
+    if gated:
+        h = act(xf @ mesh.block(p["wg"], 1, f)) * (xf @ mesh.block(p["wu"], 1, f))
+    else:
+        h = act(xf @ mesh.block(p["wi"], 1, f))
+    part = h @ mesh.block(p["wd"], 0, f)                 # partial over F
+    # the partials summed in float32 and rounded once, as one process's
+    # matmul over all of F rounds its sum once
+    return C.psum_scatter(part.float(), group, axis=1).to(x.dtype)
+
+
+@torch.no_grad()
+def _forward_seqpar(params, batch, cfg: ArchConfig, mesh):
+    """The Ulysses prefill on one rank (the reference's
+    ``_forward_gqa_seqpar`` / ``_forward_mla_seqpar``)."""
+    cd = L.torch_dtype(cfg.compute_dtype)
+    tp = mesh.axis_size(MODEL_AXIS)
+    ti = mesh.index(MODEL_AXIS)
+    group = mesh.group(MODEL_AXIS)
+    tokens = mesh.shard_rows(batch["tokens"])
+    tokens = mesh.shard_rows(tokens, MODEL_AXIS, dim=1)
+    t_loc = tokens.shape[1]
+    if cfg.padded_heads % tp:
+        raise ValueError(f"{cfg.padded_heads} heads do not split over {tp} "
+                         "ranks of 'model'")
+    attn = _mla_attn_ulysses if cfg.mla is not None else _gqa_attn_ulysses
+    x = L.embed_tokens(params["embed"], tokens, cd)
+    for li in range(cfg.n_layers):
+        # the reference casts every layer leaf to the compute dtype
+        lp = L.cast_tree(L.index_tree(params["layers"], li), cd)
+        x = x + attn(lp["attn"], L.apply_norm(cfg, x, lp["ln1"]), cfg, t_loc,
+                     group, ti, tp)
+        x = x + _ffn_tp_island(lp["ffn"], L.apply_norm(cfg, x, lp["ln2"]),
+                               cfg, group, mesh)
+    x = L.apply_norm(cfg, x, params["ln_f"])
+    head = params.get("lm_head")
+    if head is None:
+        head = params["embed"].T
+    return L.lm_logits(x, head, cfg.vocab_size, cd), {}
 
 
 # ---------------------------------------------------------------------- #

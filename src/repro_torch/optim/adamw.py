@@ -11,7 +11,7 @@ it under ``torch.no_grad()``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -58,6 +58,10 @@ def adamw_init(params: Any) -> Dict[str, Any]:
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
 
+# the most elements one elementwise pass of the update spans
+_BLOCK = 1 << 25
+
+
 def _schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     warm = torch.clamp((step + 1).float() / max(1, cfg.warmup_steps), max=1.0)
     return cfg.lr * warm
@@ -69,10 +73,14 @@ def adamw_update(
     grads: Any,
     opt_state: Dict[str, Any],
     step: torch.Tensor,
+    grad_norm: Optional[torch.Tensor] = None,
 ) -> Tuple[Any, Dict[str, Any]]:
+    """``grad_norm``: the global norm of the gradients when they are this
+    rank's blocks of sharded ones (computed from ``grads`` otherwise)."""
     # global-norm clip in fp32
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    gnorm = grad_norm if grad_norm is not None else torch.sqrt(
+        sum(torch.sum(torch.square(g.float())) for g in leaves))
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = _schedule(cfg, step)
     b1, b2 = cfg.beta1, cfg.beta2
@@ -80,7 +88,7 @@ def adamw_update(
     bc1 = 1.0 - torch.pow(torch.tensor(b1, device=stepf.device), stepf)
     bc2 = 1.0 - torch.pow(torch.tensor(b2, device=stepf.device), stepf)
 
-    def upd(p, g, m, v):
+    def upd_elems(p, g, m, v):
         g32 = g.float() * scale
         m = b1 * m + (1 - b1) * g32
         v = b2 * v + (1 - b2) * torch.square(g32)
@@ -88,6 +96,20 @@ def adamw_update(
         vh = v / bc2
         step_val = mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float()
         return (p.float() - lr * step_val).to(p.dtype), m, v
+
+    def upd(p, g, m, v):
+        # elementwise, so a large leaf goes in blocks of _BLOCK elements
+        # into its new tensors: the same bits, with the temporaries of one
+        # block instead of six leaf-sized ones
+        if p.numel() <= _BLOCK:
+            return upd_elems(p, g, m, v)
+        outs = [torch.empty(p.shape, dtype=t.dtype, device=t.device)
+                for t in (p, m, v)]
+        ins = [t.reshape(-1) for t in (p, g, m, v)]
+        for i in range(0, p.numel(), _BLOCK):
+            for out, part in zip(outs, upd_elems(*(t[i:i + _BLOCK] for t in ins))):
+                out.view(-1)[i:i + _BLOCK] = part
+        return tuple(outs)
 
     new = [upd(p, g, m, v) for p, g, m, v in zip(
         tree_leaves(params), leaves, tree_leaves(opt_state["m"]),

@@ -6,6 +6,18 @@ serialization and SCR checkpointing without special casing.  There is no
 ``jit``: the step runs eagerly, gradients come from ``torch.autograd``
 (through the flash-attention backward kernel on the card), and the AdamW
 update runs under ``torch.no_grad()``.
+
+With a mesh (:class:`repro_torch.distributed.mesh.Mesh`, one rank in each
+process) the step is data-parallel, as the reference's jit shardings make
+it: every rank is handed the whole batch, takes its rows over (``pod``,
+``data``), and its gradients are averaged over the data ranks
+(:func:`repro_torch.distributed.collectives.average_gradients`, one
+summed buffer in the group's fixed order) before the update; the MoE
+family also runs its island over ``model`` (``moe.forward(mesh=...)``).
+Each rank's loss is its rows' mean, so the step equals one step on the
+whole batch for equal shards only: an uneven split is refused.  The
+reported loss is the mean over the data ranks.  ``make_prefill_step``
+with a mesh returns the whole batch's next tokens on every rank.
 """
 
 from __future__ import annotations
@@ -15,6 +27,8 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed.mesh import DATA_AXES, MODEL_AXIS
 from repro_torch.models import layers as L
 from repro_torch.models.registry import ModelApi
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update,
@@ -45,15 +59,20 @@ def _precast(params, cfg: ArchConfig):
 
 
 def make_loss_fn(cfg: ArchConfig, model: ModelApi, mesh=None, remat: bool = True):
-    if mesh is not None:
-        raise NotImplementedError("meshes wait for the distributed slice of "
-                                  "ROADMAP.md")
+    """The loss of a batch; with a mesh, of this rank's rows of it."""
+    moe_mesh = mesh if model.family == "moe" else None
 
     def loss_fn(params, batch):
         if cfg.precast_params:
             params = _precast(params, cfg)
-        logits, aux = model.forward(params, batch, cfg, remat=remat)
-        loss = cross_entropy(logits, batch["labels"])
+        labels = batch["labels"]
+        if mesh is not None:
+            labels = mesh.shard_rows(labels)
+            if moe_mesh is None:
+                batch = {k: mesh.shard_rows(v) for k, v in batch.items()}
+        extra = {} if moe_mesh is None else {"mesh": moe_mesh}
+        logits, aux = model.forward(params, batch, cfg, remat=remat, **extra)
+        loss = cross_entropy(logits, labels)
         if "router_aux" in aux:
             loss = loss + ROUTER_AUX_COEF * aux["router_aux"]
         return loss, aux
@@ -90,6 +109,23 @@ def _value_and_grad(loss_fn, params, batch):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
+def _global_norm(grads, full_shapes, mesh) -> torch.Tensor:
+    """The norm of the whole gradient on a mesh: a leaf this rank holds a
+    block of (fewer elements than the whole parameter) adds its squares
+    summed over ``model``; the replicated leaves count once."""
+    whole = torch.zeros((), dtype=torch.float32, device=tree_leaves(grads)[0].device)
+    part = torch.zeros_like(whole)
+    for g, full in zip(tree_leaves(grads), tree_leaves(full_shapes)):
+        sq = torch.sum(torch.square(g.float()))
+        if g.numel() == full.numel():
+            whole = whole + sq
+        else:
+            part = part + sq
+    if mesh.axis_size(MODEL_AXIS) > 1:
+        part = C.psum(part, mesh.group(MODEL_AXIS))
+    return torch.sqrt(whole + part)
+
+
 def make_train_step(
     cfg: ArchConfig,
     model: ModelApi,
@@ -102,6 +138,7 @@ def make_train_step(
     accumulated in float32 over the micro-batches, in order."""
     opt_cfg = opt_cfg or AdamWConfig()
     loss_fn = make_loss_fn(cfg, model, mesh=mesh, remat=remat)
+    full_shapes = model.param_shapes(cfg) if mesh is not None else None
 
     def train_step(state, batch):
         params = state["params"]
@@ -129,9 +166,16 @@ def make_train_step(
             grads = tree_map(lambda g: g / micro_batches, grads)
             loss = loss / micro_batches
             aux = {}
+        gnorm = None
+        if mesh is not None:
+            if mesh.axis_size(DATA_AXES) > 1:
+                data = mesh.group(DATA_AXES)
+                grads = C.average_gradients(grads, data)
+                loss = C.pmean(loss, data)
+            gnorm = _global_norm(grads, full_shapes, mesh)
         with torch.no_grad():
             params, opt = adamw_update(opt_cfg, params, grads, state["opt"],
-                                       state["step"])
+                                       state["step"], grad_norm=gnorm)
         new_state = {"params": params, "opt": opt, "step": state["step"] + 1}
         metrics = {"loss": loss}
         if "router_aux" in aux:
@@ -142,16 +186,23 @@ def make_train_step(
 
 
 def make_prefill_step(cfg: ArchConfig, model: ModelApi, mesh=None) -> Callable:
-    if mesh is not None:
-        raise NotImplementedError("meshes wait for the distributed slice of "
-                                  "ROADMAP.md")
+    seqpar = cfg.seq_parallel and mesh is not None
+    extra = {"mesh": mesh} if mesh is not None and (
+        model.family == "moe" or seqpar) else {}
 
     @torch.no_grad()
     def prefill_step(params, batch):
         if cfg.precast_params:
             params = _precast(params, cfg)
-        logits, _ = model.forward(params, batch, cfg, remat=False)
-        return logits[:, -1].argmax(dim=-1).to(torch.int32)
+        if mesh is not None and not extra:
+            batch = {k: mesh.shard_rows(v) for k, v in batch.items()}
+        logits, _ = model.forward(params, batch, cfg, remat=False, **extra)
+        nxt = logits[:, -1].argmax(dim=-1).to(torch.int32)
+        if mesh is None:
+            return nxt
+        if seqpar:   # the last position is the last model rank's
+            nxt = C.all_gather(nxt[None], mesh.group(MODEL_AXIS), 0)[-1]
+        return C.all_gather(nxt, mesh.group(DATA_AXES), 0)
 
     return prefill_step
 

@@ -1,7 +1,8 @@
 """Shared checks of a port model family against the JAX reference, used by
 ``test_torch_rwkv6.py``, ``test_torch_mamba2.py``, ``test_torch_mla.py``,
-``test_torch_moe.py`` and ``test_torch_whisper_paligemma.py`` (this module
-holds no tests of its own).
+``test_torch_moe.py`` and ``test_torch_whisper_paligemma.py``.  Its own
+tests run the forward, loss-and-gradient and decode checks on reduced
+starcoder2-7b, the one LayerNorm + non-gated GELU transformer.
 
 Weights and the initial train state are made by the reference and carried
 across (``repro_torch.convert``); batches come from the data pipeline
@@ -19,6 +20,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.configs import get_config as jget_config
@@ -276,3 +278,17 @@ def check_checkpoint_bytes(pair):
     for a, b in zip(jax.tree_util.tree_leaves(jback),
                     jax.tree_util.tree_leaves(state_to_numpy(tstate))):
         assert np.asarray(a).tobytes() == np.asarray(b).tobytes()
+
+
+_STARCODER2 = {}
+
+
+@pytest.mark.parametrize("check", ["forward", "loss_and_grads", "decode"])
+def test_starcoder2_7b(check):
+    """Reduced starcoder2-7b (LayerNorm with a bias, GELU MLP, RoPE theta
+    1e5; 4 heads over 4 kv heads at this size) against the reference, at
+    the checks' tolerances."""
+    if not _STARCODER2:
+        _STARCODER2["pair"] = make_pair("starcoder2-7b")
+    {"forward": check_forward, "loss_and_grads": check_loss_and_grads,
+     "decode": check_decode}[check](_STARCODER2["pair"])

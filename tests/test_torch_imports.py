@@ -31,12 +31,18 @@ def test_importing_every_port_module_loads_no_jax_and_no_reference():
                 "serve.fleet.board", "serve.fleet.worker",
                 "serve.fleet.frontend", "core.tasks", "optim.compression",
                 "distributed", "distributed.sharding",
-                "distributed.collectives"):
+                "distributed.collectives", "distributed.mesh", "core.offload",
+                "launch", "launch.mesh", "launch.train", "launch.dryrun"):
         assert f"repro_torch.{mod}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        "c = importlib.import_module('repro_torch.distributed.collectives')\n"
+        "for f in ('all_to_all', 'all_gather', 'psum_scatter', 'psum',\n"
+        "          'copy_to_group', 'reduce_from_group', 'pmean',\n"
+        "          'average_gradients'):\n"
+        "    getattr(c, f)\n"
         "bad = sorted(n for n in sys.modules\n"
         "             if n == 'jax' or n.startswith('jax.')\n"
         "             or n == 'repro' or n.startswith('repro.'))\n"
