@@ -259,11 +259,15 @@ final state (a loss on y and on the final state) at 64-wide shapes, WKV6
 at head sizes 128 and 80 and SSD at (P, N) = (64, 128) and (128, 64)
 (tiles of the 64-wide kernels on the float32 route), flash at (D, Dv)
 = (72, 72), (112, 112), (160, 160), (100, 100) and (96, 32) (zero-padded
-to the next instantiation) and past 256 on the wide kernels, (264, 264),
-(300, 300), (320, 320), (512, 512) and absorbed MLA's (576, 512), each f32
-and bf16 against the plain version (f32 gradients also against float64),
-twice bit-identical, with bf16 times (past 256 beside every SDPA form that
-takes the call, and those that refuse it), and both paged kernels (plain
+to the next instantiation) and past 256 on the wide kernels (bf16 on the
+tensor cores, f32 on the CUDA cores), (264, 264), (300, 300), (320, 320),
+(512, 512), absorbed MLA's (576, 512) and its MQA prefill (B 1 x T 1024,
+16 query heads over 1; bf16 there against the plain version in float64),
+each f32 and bf16 against the plain version (f32 gradients also against
+float64), twice bit-identical, with bf16 times beside every SDPA form that
+takes the call (and those that refuse it, named); the wide kernels with
+the prefix-LM mask, Tq < Tk and non-causal Tq > Tk (REPAIR_FLASH_MASKS);
+and both paged kernels (plain
 and int8 pools, f32 and bf16, the multi-token folds) at D 100 (padded to
 104), 320 and 576 (the boxed span kernel) against their plain versions,
 twice bit-identical, with bf16 times beside the bound and the fastest SDPA
@@ -438,6 +442,26 @@ REPAIR_FLASH = {   # b, tq, tk, hq, hkv, d, dv
     "(320, 320)": (2, 256, 256, 8, 2, 320, 320),
     "(512, 512)": (2, 256, 256, 8, 2, 512, 512),
     "(576, 512)": (2, 256, 256, 8, 2, 576, 512),
+    # absorbed MLA's geometry (DeepSeek-V2/V3) as a prefill: MQA, 16 query
+    # heads over 1 latent head; bound by operations, not bytes
+    "(576, 512) MQA T 1024": (1, 1024, 1024, 16, 1, 576, 512),
+}
+# phase 10's cases whose bf16 results are held against the plain version
+# computed in float64 on the same bf16 inputs (at FLASH_BF16_TOL), not
+# against its bf16 run: with 16 query heads over one kv head and T 1024 a
+# dK or dV element sums 16,384 products, and the plain bf16 version rounds
+# each head's share to bf16 before their sum (the repeat's gradient), which
+# leaves it up to 6e-2 from the exact sum where the shares cancel; the
+# kernel rounds once.  Both distances to float64 are printed.
+FLASH_BF16_AGAINST_F64 = {"(576, 512) MQA T 1024"}
+# the masks on the wide kernels (fault 4's prefix-LM mask and fault 1's
+# non-causal Tq > Tk, as phases 6 and 16 (a) hold them up to 256):
+# b, tq, tk, hq, hkv, d, dv, causal, prefix_len
+REPAIR_FLASH_MASKS = {
+    "(576, 512) T 200 prefix 77": (2, 200, 200, 8, 2, 576, 512, True, 77),
+    "(264, 264) Tq 77 < Tk 300 prefix 150": (2, 77, 300, 8, 2, 264, 264, True, 150),
+    "(320, 100) non-causal Tq 100 > Tk 77": (2, 100, 77, 8, 2, 320, 100, False, 0),
+    "(40, 296) non-causal, prefix ignored": (1, 130, 130, 4, 4, 40, 296, False, 50),
 }
 # fault 6: flash past the 65,535 limit of grid dimensions y and z (every
 # launcher folds its blocks into grid x): a batch of 65,600, and a wide call
@@ -1224,7 +1248,19 @@ def flash_sass() -> dict:
     HGMMA (wgmma) and UTMALDG (TMA load) instructions in the library's SASS.
     Raises if a kernel has no HGMMA: the route would not be on the tensor
     cores."""
-    name = re.compile(r"hopper\d+(fwd_kernel|dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E")
+    name = re.compile(r"hopper\d+(fwd_kernel|dq_kernel|dkdv_kernel)ILi(\d+)ELi(\d+)E"
+                      r"|hopper\d+(wide_(?:fwd|dq|dkdv)_kernel)(?:ILi(\d)E)?")
+
+    def key_of(m):
+        """ "fwd_kernel<96,96>"; past 256 the widths are taken at run time:
+        "wide_dq_kernel", and "wide_fwd_kernel<2>" / "<4>" by the boxes a
+        warpgroup takes of V's columns """
+        if m is None:
+            return None
+        if m[1]:
+            return f"{m[1]}<{m[2]},{m[3]}>"
+        return m[4] + (f"<{m[5]}>" if m[5] else "")
+
     log = _build.build_log.get("flash_attention")
     if log is None:
         raise AssertionError("no ptxas report: flash_attention.cu was not built "
@@ -1232,8 +1268,7 @@ def flash_sass() -> dict:
     report, cur = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            m = name.search(line)
-            cur = f"{m[1]}<{m[2]},{m[3]}>" if m else None
+            cur = key_of(name.search(line))
             if cur:
                 report[cur] = {"HGMMA": 0, "UTMALDG": 0}
         elif cur and "spill stores" in line:
@@ -1247,23 +1282,28 @@ def flash_sass() -> dict:
     cur = None
     for line in sass.splitlines():
         if "Function :" in line:
-            m = name.search(line)
-            cur = f"{m[1]}<{m[2]},{m[3]}>" if m else None
+            cur = key_of(name.search(line))
         elif cur:
             report[cur]["HGMMA"] += " HGMMA." in line
             report[cur]["UTMALDG"] += " UTMALDG." in line
     lib = _build.library("flash_attention")
     for key, entry in report.items():
-        kind, dims = key[:-1].split("<")
-        d, dv = map(int, dims.split(","))
+        if key.startswith("wide_"):   # at widths that take it
+            kind = key[5:].split("<")[0]
+            d, dv = (576, 256) if key.endswith("<2>") else (576, 512)
+        else:
+            kind, dims = key[:-1].split("<")
+            d, dv = map(int, dims.split(","))
         entry["dynamic_smem_bytes"] = lib.repro_flash_bf16_smem(
             ("fwd_kernel", "dq_kernel", "dkdv_kernel").index(kind), d, dv)
         say(f"  {key}: {entry['registers']} registers, spill stores "
             f"{entry['spill_stores']} B / loads {entry['spill_loads']} B, "
             f"{entry['dynamic_smem_bytes']} B dynamic shared memory; SASS "
             f"HGMMA {entry['HGMMA']}, UTMALDG {entry['UTMALDG']}")
-    want = {f"{k}<{d},{dv}>" for k in ("fwd_kernel", "dq_kernel", "dkdv_kernel")
-            for d, dv in fa.BF16_PAIRS}
+    fwd_wide, *bwd_wide = fa.ROUTE_KERNELS["bf16_wide"]
+    want = ({f"{k}<{d},{dv}>" for k in fa.ROUTE_KERNELS["bf16"]
+             for d, dv in fa.BF16_PAIRS} | set(bwd_wide)
+            | {f"{fwd_wide}<2>", f"{fwd_wide}<4>"})
     if set(report) != want:
         raise AssertionError(f"bf16 flash kernels in the build: {sorted(report)}, "
                              f"want {sorted(want)}")
@@ -1424,6 +1464,9 @@ def phase6() -> dict:
     for name, names in kinds.items():
         rec[name]["sass"] = {k: v for k, v in sass.items()
                              if k.split("<")[0] in names}
+        # the wide kernels' own entries (main) take these
+        rec[name]["sass_wide"] = {k: v for k, v in sass.items()
+                                  if k.split("<")[0] in {"wide_" + n for n in names}}
     return rec
 
 
@@ -1955,6 +1998,9 @@ def phase10_repairs() -> dict:
     for label, shape in REPAIR_FLASH.items():
         out["flash"][label] = repair_flash(label, shape)
         release()
+    out["flash_masks"] = {
+        label: repair_flash(label, shape[:7], *shape[7:], timed=False)
+        for label, shape in REPAIR_FLASH_MASKS.items()}
     for label, shape in REPAIR_PAGED.items():
         out["paged"][label] = repair_paged(label, shape)
         release()
@@ -2014,14 +2060,16 @@ def repair_grid(label, shape) -> dict:
     return rec
 
 
-def repair_flash(label, shape) -> dict:
+def repair_flash(label, shape, causal=True, prefix_len=0, timed=True) -> dict:
     """Flash at one (D, Dv) against the plain version, forward and
     backward, f32 (also against float64) and bf16, twice bit-identical;
-    bf16 times beside the bound, and past 256 the SDPA forms that take the
-    call and those that refuse it."""
+    where ``timed``, bf16 times beside the bound and every SDPA form that
+    takes the call (and those that refuse it)."""
     b, tq, tk, hq, hkv, d, dv = shape
     f32, bf16 = torch.float32, torch.bfloat16
     rec = {"shape": [b, tq, tk, hq, hkv, d, dv], "wide": fa.is_wide(d, dv),
+           "causal": causal, "prefix_len": prefix_len,
+           "route": {str(t)[6:]: fa.route(t, d, dv) for t in (f32, bf16)},
            "kernel_dims": {"float32": list(fa.padded_dims(d, dv)),
                            "bfloat16": list(fa.bf16_kernel_dims(d, dv))}}
     for dtype in (f32, bf16):
@@ -2030,15 +2078,25 @@ def repair_flash(label, shape) -> dict:
         tag = f"(D, Dv) = {label} {str(dtype)[6:]}"
         q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, dtype,
                                      seed=SEED + 14, dv=dv)
-        got = flash_grads(q, k, v, dout, None)
-        want = flash_grads(q, k, v, dout, False)
+        got = flash_grads(q, k, v, dout, None, causal, prefix_len)
+        want = flash_grads(q, k, v, dout, False, causal, prefix_len)
+        if dtype == bf16 and label in FLASH_BF16_AGAINST_F64:
+            exact = flash_grads(q.double(), k.double(), v.double(),
+                                dout.double(), False, causal, prefix_len)
+            for name, g, w, e in zip(("out", "dQ", "dK", "dV"), got, want,
+                                     exact):
+                say(f"    {name}: distance to float64 kernel "
+                    f"{(g.double() - e).abs().max().item():.3e}, plain bf16 "
+                    f"{(w.double() - e).abs().max().item():.3e}")
+            want = exact
+            tag += " against float64"
         err = check_close(f"flash fwd {tag}", got[0], want[0], **tol)
         for name, g, w in zip(("dQ", "dK", "dV"), got[1:], want[1:]):
             err = max(err, check_close(f"flash bwd {name} {tag}", g, w,
                                        **bwd_tol))
         if dtype == f32:
             exact = flash_grads(q.double(), k.double(), v.double(),
-                                dout.double(), False)
+                                dout.double(), False, causal, prefix_len)
             dist = lambda xs: max((x.double() - e).abs().max().item()
                                   for x, e in zip(xs, exact[1:]))
             kern_d, plain_d = dist(got[1:]), dist(want[1:])
@@ -2047,11 +2105,15 @@ def repair_flash(label, shape) -> dict:
             if kern_d > max(plain_d, FLASH_F64_ATOL):
                 raise AssertionError(f"flash bwd {tag}: the kernel lies "
                                      f"{kern_d:.3e} from float64")
-        again = flash_grads(q, k, v, dout, None)
+        again = flash_grads(q, k, v, dout, None, causal, prefix_len)
         if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
             raise AssertionError(f"flash {tag}: a repeated run gave other "
                                  "bits")
         rec[f"max_abs_err_{str(dtype)[6:]}"] = err
+        del q, k, v, dout, got, want, again
+        release()
+    if not timed:
+        return rec
     q, k, v, dout = flash_inputs(b, tq, tk, hq, hkv, d, bf16,
                                  seed=SEED + 15, dv=dv)
     o, lse = fa.flash_attention_fwd(q, k, v)
@@ -2067,23 +2129,67 @@ def repair_flash(label, shape) -> dict:
     rec["plain_bwd_ms"] = time_ms(lambda: torch.autograd.grad(
         plain_out, (qr, kr, vr), dout, retain_graph=True), iters=5, warmup=1)
     del qr, kr, vr, plain_out
-    rec["fwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, False,
-                                         dv=dv)[0]
-    rec["bwd_bound_ms"] = flash_bound_ms(b, tq, tk, hq, hkv, d, 2, True,
-                                         dv=dv)[0]
-    say(f"  flash {label} bf16 at {rec['kernel_dims']['bfloat16']}"
-        f"{' (wide kernels)' if rec['wide'] else ''}: "
+    rec["fwd_bound_ms"], rec["fwd_bound_by"] = flash_bound_ms(
+        b, tq, tk, hq, hkv, d, 2, False, dv=dv)
+    rec["bwd_bound_ms"], rec["bwd_bound_by"] = flash_bound_ms(
+        b, tq, tk, hq, hkv, d, 2, True, dv=dv)
+    say(f"  flash {label} bf16 at {rec['kernel_dims']['bfloat16']} "
+        f"({rec['route']['bfloat16']}): "
         f"forward {rec['fwd_ms']:.5f} ms (bound {rec['fwd_bound_ms']:.5f}, "
         f"plain {rec['plain_fwd_ms']:.5f}), backward {rec['bwd_ms']:.5f} ms "
         f"(bound {rec['bwd_bound_ms']:.5f}, plain {rec['plain_bwd_ms']:.5f})")
-    if rec["wide"]:
-        refused = []
-        say(f"  SDPA at {label}:")
-        lib = sdpa_best_ms(q, k, v, dout, True, 0, refused=refused)
-        rec.update(library_fwd_ms=lib["fwd"][0], library_fwd=lib["fwd"][1],
-                   library_bwd_ms=lib["bwd"][0], library_bwd=lib["bwd"][1],
-                   library_refused=refused)
+    refused = []
+    say(f"  SDPA at {label}:")
+    lib = sdpa_best_ms(q, k, v, dout, True, 0, refused=refused)
+    rec.update(library_fwd_ms=lib["fwd"][0], library_fwd=lib["fwd"][1],
+               library_bwd_ms=lib["bwd"][0], library_bwd=lib["bwd"][1],
+               library_refused=refused)
     return rec
+
+
+def wide_flash_entry(kind, repairs, sass, launches) -> dict:
+    """The kernels line's entry for the bf16 wide kernels (heads past 256,
+    ``route`` "bf16_wide"), forward or backward: ``launches`` on the main
+    path (phase 8's run, counted by route), times at absorbed MLA's MQA
+    case, each wide width's beside them, the largest bf16 error over phase
+    10's wide and masked cases."""
+    name = f"flash_attention_{kind}_wide"
+    wide = {label: r for label, r in repairs["flash"].items() if r["wide"]}
+    head = wide["(576, 512) MQA T 1024"]
+    errs = [r["max_abs_err_bfloat16"] for r in wide.values()] + [
+        r["max_abs_err_bfloat16"] for r in repairs["flash_masks"].values()
+        if r["wide"]]
+    keys = (f"{kind}_ms", f"plain_{kind}_ms", f"{kind}_bound_ms",
+            f"{kind}_bound_by", f"library_{kind}_ms", f"library_{kind}")
+    b, tq, tk, hq, hkv, d, dv = head["shape"]
+    return {
+        "name": name, "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:123",
+        "design": "wgmma+tma past 256 columns: " + (
+            "wide_fwd_kernel" if kind == "fwd" else
+            "delta, wide_dq_kernel, wide_dkdv_kernel") +
+            "; contractions streamed through a ring of 64 x 64 box pairs "
+            "split between two consumer warpgroups on the same 64 rows, each "
+            "block a slice of <= 256 output columns (the forward's 512 where "
+            "V is wider than 256)",
+        "launches": launches,
+        "main_path": "no configuration has a head past 256 (paligemma-3b's "
+                     "256 is the widest): every main-path run gates these "
+                     "launches at 0; phase 10 holds them against the plain "
+                     "version",
+        "max_abs_err": max(errs),
+        "ms": head[f"{kind}_ms"], "plain_ms": head[f"plain_{kind}_ms"],
+        "bound_ms": head[f"{kind}_bound_ms"],
+        "bound_by": head[f"{kind}_bound_by"],
+        "library_ms": head[f"library_{kind}_ms"],
+        "library": head[f"library_{kind}"],
+        "shape": {"B": b, "Tq": tq, "Tk": tk, "Hq": hq, "Hkv": hkv, "D": d,
+                  "Dv": dv, "dtype": "bfloat16", "causal": True},
+        "at_widths": {label: {k: r[k] for k in keys}
+                      for label, r in wide.items()},
+        "masks": repairs["flash_masks"],
+        "sass": sass}
 
 
 # ---------------------------------------------------------------------- #
@@ -2224,7 +2330,7 @@ def phase8() -> tuple:
 
         ref.flash_attention = counted("plain", plain_fn)
         torch.nn.functional.scaled_dot_product_attention = counted("sdpa", sdpa_fn)
-        fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+        reset_flash_launches()
         torch.cuda.reset_peak_memory_stats()
         try:
             faulty, manifest, disk = train_run(
@@ -2234,13 +2340,15 @@ def phase8() -> tuple:
             ref.flash_attention = plain_fn
             torch.nn.functional.scaled_dot_product_attention = sdpa_fn
         fwd, bwd = fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches
+        wide = wide_flash_launches()
         peak = torch.cuda.max_memory_allocated()
         report_train("node kill", faulty, manifest, disk)
     finally:
         torch.use_deterministic_algorithms(False)
         shutil.rmtree(tmp, ignore_errors=True)
     say(f"  node kill: flash launches forward {fwd}, backward {bwd} over "
-        f"{faulty.steps_run} steps x {layers} layers; plain attention calls "
+        f"{faulty.steps_run} steps x {layers} layers (of them past 256 "
+        f"columns: {wide}); plain attention calls "
         f"{calls['plain']}, sdpa calls {calls['sdpa']}; peak device memory "
         f"{peak / 2**30:.3f} GiB")
     if faulty.recoveries != 1 or faulty.restarts_from_step != [TRAIN["ckpt_every"]]:
@@ -2257,6 +2365,9 @@ def phase8() -> tuple:
     if calls["plain"] or calls["sdpa"]:
         raise AssertionError(f"the training path called plain or library "
                              f"attention: {calls}")
+    if any(wide.values()):
+        raise AssertionError(f"phi3's heads of 96 launched the kernels past "
+                             f"256 columns: {wide}")
     if (manifest["sha256"], manifest["total_bytes"]) != (
             clean_manifest["sha256"], clean_manifest["total_bytes"]):
         raise AssertionError("the recovered run's final state differs from "
@@ -2267,7 +2378,7 @@ def phase8() -> tuple:
                  "layers_published": get_config(TRAIN["arch"]).n_layers,
                  "batch": TRAIN["batch"], "seq": TRAIN["seq"],
                  "steps_run": faulty.steps_run}
-    return state, cfg, {"fwd": fwd, "bwd": bwd, "main_path": main_path}
+    return state, cfg, {"fwd": fwd, "bwd": bwd, **wide, "main_path": main_path}
 
 
 def phase9(state) -> dict:
@@ -2428,13 +2539,27 @@ def family_launches():
             "mamba2_ssd_fwd": ssd.ssd_fwd.launches,
             "mamba2_ssd_bwd": ssd.ssd_bwd.launches,
             "flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "flash_attention_bwd": fa.flash_attention_bwd.launches}
+            "flash_attention_bwd": fa.flash_attention_bwd.launches,
+            **{f"flash_attention_{k}": n for k, n in wide_flash_launches().items()}}
+
+
+def wide_flash_launches() -> dict:
+    """The flash wrappers' launches past 256 columns (route "bf16_wide"),
+    counted where they launch, since the counts were last reset."""
+    return {"fwd_wide": fa.flash_attention_fwd.by_route["bf16_wide"],
+            "bwd_wide": fa.flash_attention_bwd.by_route["bf16_wide"]}
+
+
+def reset_flash_launches() -> None:
+    for fn in (fa.flash_attention_fwd, fa.flash_attention_bwd):
+        fn.launches = 0
+        fn.by_route = dict.fromkeys(fn.by_route, 0)
 
 
 def reset_family_launches() -> None:
-    for fn in (wkv.wkv6_fwd, wkv.wkv6_bwd, ssd.ssd_fwd, ssd.ssd_bwd,
-               fa.flash_attention_fwd, fa.flash_attention_bwd):
+    for fn in (wkv.wkv6_fwd, wkv.wkv6_bwd, ssd.ssd_fwd, ssd.ssd_bwd):
         fn.launches = 0
+    reset_flash_launches()
 
 
 def prefill_full_depth(arch: str, kernels: tuple, seq=None) -> dict:
@@ -2559,6 +2684,9 @@ def family_want(cfg, kernels: tuple, steps: int) -> dict:
     if groups:
         want["flash_attention_fwd"] = groups * steps
         want["flash_attention_bwd"] = 3 * groups * steps
+    if "flash_attention_fwd" in want:
+        # no configuration has a head past 256 columns
+        want["flash_attention_fwd_wide"] = want["flash_attention_bwd_wide"] = 0
     return want
 
 
@@ -3254,7 +3382,9 @@ def train_twice(cfg, model, tag: str) -> dict:
         torch.use_deterministic_algorithms(False)
     (m1, l1, _, a1, n1, p1, _), (m2, *_rest) = runs
     want = {"flash_attention_fwd": 2 * cfg.n_layers * FAMILY["steps"],
-            "flash_attention_bwd": 3 * cfg.n_layers * FAMILY["steps"]}
+            "flash_attention_bwd": 3 * cfg.n_layers * FAMILY["steps"],
+            # no configuration has a head past 256 columns
+            "flash_attention_fwd_wide": 0, "flash_attention_bwd_wide": 0}
     for r in runs:
         if {k: r[4][k] for k in want} != want or any(r[5].values()):
             raise AssertionError(f"flash launches {r[4]} (want {want}), plain "
@@ -4509,7 +4639,7 @@ def p19_counted():
     ref.flash_attention = plain
     for n, fn in saved.items():
         setattr(C, n, timed(fn))
-    fa.flash_attention_fwd.launches = fa.flash_attention_bwd.launches = 0
+    reset_flash_launches()
     try:
         yield calls
     finally:
@@ -5122,6 +5252,7 @@ def main() -> int:
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
         kernels[name]["launches"] = launches[name.rsplit("_", 1)[1]]
         kernels[name]["main_path"] = launches["main_path"]
+    wide_main = {kind: launches[f"{kind}_wide"] for kind in ("fwd", "bwd")}
     release()
     kernels["xor_reduce"] = phase9(state)
     del state
@@ -5134,8 +5265,14 @@ def main() -> int:
         for name in names:
             kernels[name]["repair_cases"] = repairs[kind]
     for name in ("flash_attention_fwd", "flash_attention_bwd"):
-        kernels[name]["repair_widths"] = repairs["flash"]
+        kernels[name]["repair_widths"] = {
+            label: r for label, r in repairs["flash"].items() if not r["wide"]}
         kernels[name]["repair_grid"] = repairs["flash_grid"]
+    for kind in ("fwd", "bwd"):
+        entry = wide_flash_entry(kind, repairs,
+                                 kernels[f"flash_attention_{kind}"].pop("sass_wide"),
+                                 wide_main[kind])
+        kernels[entry["name"]] = entry
     release()
     for phase, arch, names in ((11, "rwkv6-3b", ("wkv6_fwd", "wkv6_bwd")),
                                (12, "zamba2-2.7b", ("mamba2_ssd_fwd",
@@ -5149,6 +5286,8 @@ def main() -> int:
         for name in ("flash_attention_fwd", "flash_attention_bwd"):
             if name in got["launches"]:   # zamba2's shared block
                 kernels[name]["launches_" + arch] = got["launches"][name]
+                kernels[name + "_wide"]["launches_" + arch] = (
+                    got["launches"][name + "_wide"])
 
     phase13(kernels)
 
@@ -5170,6 +5309,9 @@ def main() -> int:
                                             if kind == "fwd" else 0),
             **dv}
         kernels[name][f"launches_{MOE_ARCH}"] = moe["train"]["launches"][name]
+        for run in (mla["family"], moe["train"]):
+            kernels[name + "_wide"]["launches_" + run["main_path"]["arch"]] = (
+                run["launches"][name + "_wide"])
         kernels[name][f"main_path_{MOE_ARCH}"] = moe["train"]["main_path"]
     kernels["flash_attention_fwd"][f"prefill_full_depth_{MOE_ARCH}"] = moe["prefill"]
 
@@ -5194,6 +5336,9 @@ def main() -> int:
             kernels[name][f"at_{key}"] = p16["kernels"][key][kind]
         kernels[name][f"launches_{WHISPER_ARCH}"] = (
             p16["whisper"]["launches"][name])
+        for run in (p16["train"], p16["whisper"]):
+            kernels[name + "_wide"]["launches_" + run["main_path"]["arch"]] = (
+                run["launches"][name + "_wide"])
         kernels[name][f"main_path_{WHISPER_ARCH}"] = p16["whisper"]["main_path"]
     kernels["flash_attention_fwd"][f"prefill_full_depth_{PALI_ARCH}"] = p16["prefill"]
     kernels["flash_attention_fwd"][f"prefill_full_depth_{WHISPER_ARCH}"] = (

@@ -146,9 +146,10 @@ def _header(t: torch.Tensor) -> torch.Tensor:
 
 class OffloadEngine:
     """Spawn-like offload of functions onto a module sub-grid of ranks;
-    ``device`` is where this rank keeps the blocks it receives."""
+    ``device`` is where this rank keeps the blocks it receives: the card
+    unless the caller asks for the CPU, as every entry point of the port."""
 
-    def __init__(self, modules: Dict[Module, ModuleMesh], device="cpu"):
+    def __init__(self, modules: Dict[Module, ModuleMesh], device="cuda"):
         self.modules = modules
         self.device = torch.device(device)
         self._cache: Dict[Tuple, Any] = {}

@@ -36,9 +36,11 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
     },
     "flash_attention": {
         "repro_flash_fwd": [_I] + [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
-        "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P],
+        "repro_flash_bwd": [_I] + [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P, _P],
+        "repro_flash_bwd_workspace": [_I] * 7,
         "repro_flash_bf16_smem": [_I, _I, _I],
         "repro_flash_bf16_dims": [_I, _I],
+        "repro_flash_route": [_I, _I, _I],
     },
     "xor_parity": {
         "repro_xor_reduce": [_P, _P, _I, _L, _I, _P],
@@ -53,6 +55,9 @@ SIGNATURES: Dict[str, Dict[str, List]] = {
         "repro_ssd_bwd": [_I] + [_P] * 17 + [_I] * 6 + [_P],
     },
 }
+
+# entry points that return something other than a C int
+RESTYPES = {"repro_flash_bwd_workspace": _L}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 # compiler output (registers, shared memory, spills) of this process's builds
@@ -117,6 +122,6 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(library_path(name)))
         for fn, argtypes in SIGNATURES[name].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = RESTYPES.get(fn, ctypes.c_int)
         _loaded[name] = lib
     return lib

@@ -102,11 +102,48 @@
 //   lane+32, ... of the 8 rows' accumulators and receives p_ij from lane j by
 //   shuffle.  Bound by those f32 operations, far from the tensor cores.
 //
-// * wide heads (D or Dv above 256), both dtypes: the float32 route's layout
-//   with every contraction streamed in 64-column boxes and the output
-//   columns split over blocks of 256 (the flash_wide_* kernels below); a
-//   bfloat16 call runs there as f32 tiles, p and dS rounded to bf16 where
-//   they enter a product.  Any multiple of 8 runs; the wrapper pads the rest.
+// * wide heads (D or Dv above 256), a static rule by dtype and width
+//   (route_of below; the wrapper's flash_attention.route states it too).
+//   Any multiple of 8 runs on either dtype; the wrapper pads the rest.
+//   - float32: the float32 route's layout with every contraction streamed
+//     in 64-column boxes and the output columns split over blocks of 256
+//     (the flash_wide_* kernels), exact f32 on the CUDA cores.
+//   - bfloat16: tensor cores (hopper::wide_fwd_kernel, wide_dq_kernel,
+//     wide_dkdv_kernel), D 256's layout carried past it.  A 64-row bf16 tile of
+//     D 576 is 72 KB, so Q, K and V of one stage leave no room for a second in
+//     227 KB: no tile stays resident.  Every contraction (Q K^T over D, dO V^T
+//     over Dv; K Q^T and V dO^T in dK/dV) streams through a ring of eight (A
+//     box, B box) pairs of 64 rows by 64 columns, 128-byte swizzled and
+//     completed on mbarriers as tma_rows loads them, and S (dP) accumulates box
+//     after box as m64n64k16 products, each pair handed back as soon as its
+//     products are done; the box count is taken at run time, so every width
+//     runs without an instantiation of its own, and a box past the true width
+//     reads zeros.  Q and dO stream too (re-read from L2 for every key tile): a
+//     forward that kept Q resident (72 KB at D 576, K boxes alone in the ring,
+//     a single exchange buffer) read 40% fewer bytes a tile and was no faster
+//     on the H100 (6-9% slower, in separate runs), so the tiles' time is not
+//     L2's but the pairs' latency, which the ring's depth hides.  A block owns
+//     64 rows and one slice of at most 256 output columns (Dv forward, D for
+//     dQ, D's slices then Dv's for dK/dV in one grid; the forward's slices
+//     are 512 columns where V is wider and the grid large, its consumers
+//     then holding four boxes each with the producer warpgroup's registers,
+//     setmaxnreg, so the scores are computed once per 512); its two consumer
+//     warpgroups share the rows, split each contraction's boxes between them
+//     and add each other's partial S (dP) through shared memory (a + b == b +
+//     a, so both hold the same bits), and each accumulates two 64-column boxes
+//     of the slice (D 256's footprint), streamed through a one-stage slice
+//     ring, with P (dS) in registers as the A operand.  Causal GQA leaves the
+//     first key tiles of dK/dV with every q tile of every head of the group, so
+//     the launcher splits a kv head's query heads over blocks (kv_groups, a
+//     rule of the shape) until the grid fills the card, and a combine kernel
+//     adds their f32 partial sums in group order (the wrapper allocates the
+//     workspace that repro_flash_bwd_workspace asks for).  Every sum runs in a
+//     fixed order and nothing is atomic: the same bits run after run, at the
+//     price of the scores computed once per slice.  Bound: operations at
+//     absorbed MLA's MQA prefill (B 1 x T 1024, 16 heads over 1, causal: ~18
+//     GFLOP against ~38 MB); at B 2 x T 256 over 8 heads the forward is one
+//     thin wave of 128 blocks on 132 SMs, whose causal rows take 1 to 4 key
+//     tiles.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -551,7 +588,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------- //
-// wide heads: D or Dv above 256, both dtypes, on the CUDA cores
+// wide heads: D or Dv above 256, float32, on the CUDA cores
 // ---------------------------------------------------------------------- //
 //
 // Above 256 columns a block can hold neither its rows' accumulators in
@@ -567,20 +604,11 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 //   recomputes the same scores in the same order, so the bits stay fixed;
 //   dO V^T runs over all of Dv inside each block; no sum crosses blocks and
 //   nothing is atomic.
-// bfloat16 inputs are read as f32 (products of bf16 values are exact in
-// f32, as on the tensor cores) and p and dS are rounded to bf16 where they
-// enter a product, as the tensor-core route rounds them (the reference's
-// p.astype(v.dtype)); the softmax sum takes the unrounded p.
+// bfloat16 calls past 256 run the tensor-core wide kernels (hopper::wide_*).
 
 constexpr int kBoxW = 64;                 // columns of a streamed box
 constexpr int kSliceW = 256;              // output columns a block owns
 constexpr int kSliceNC = kSliceW / 32;    // 32-column groups of a slice
-
-// x as it enters a product in T's precision
-__device__ __forceinline__ float as_operand(float x, const float*) { return x; }
-__device__ __forceinline__ float as_operand(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16(x));
-}
 
 // Stage columns [c0, c0 + w) of rows [r0, r0 + kTile) of one head of a (B,
 // T, H, ld) tensor into shared memory as f32, zero past row t: row-major with
@@ -698,7 +726,7 @@ flash_wide_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       corr[i] = expf(m[i] - m_new);
       l[i] = l[i] * corr[i] + warp_sum(e);
       m[i] = m_new;
-      p[i] = as_operand(e, static_cast<const T*>(nullptr));
+      p[i] = e;
     }
 
     float pv[kRows][kSliceNC];
@@ -799,7 +827,7 @@ flash_wide_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int q_pos = q0 + warp * kRows + i + q_offset;
       const bool valid = k_pos < tk && (!causal || k_pos <= q_pos || k_pos < prefix_len);
       const float p = valid ? expf(s[i] * scale - row_lse[i]) : 0.f;
-      ds[i] = as_operand(p * (dp[i] - row_delta[i]), static_cast<const T*>(nullptr));
+      ds[i] = p * (dp[i] - row_delta[i]);
     }
 
     float part[kRows][kSliceNC];
@@ -912,8 +940,7 @@ flash_wide_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         const bool valid = q_row < tq && k_pos < tk &&
                            (!causal || k_pos <= q_pos || k_pos < prefix_len);
         const float p = valid ? expf(s[i] * scale - my_lse) : 0.f;
-        wgt[i] = as_operand(is_dk ? p * (dp[i] - my_delta) : p,
-                            static_cast<const T*>(nullptr));
+        wgt[i] = is_dk ? p * (dp[i] - my_delta) : p;
       }
 
       float part[kRows][kSliceNC];
@@ -1876,6 +1903,600 @@ dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
   store_rows<S::kW>(dk, dk0, dk1, mul, key0, tk, b, hkv, hk, lane, d, part * S::kW);
 }
 
+
+// ---------------------------------------------------------------------- //
+// bfloat16 past 256 columns: the same skeleton, every operand streamed
+// ---------------------------------------------------------------------- //
+
+// A block owns 64 rows and one slice of at most kSliceW output columns;
+// its two consumer warpgroups take two 64-column boxes of the slice each
+// (D 256's Split footprint: 64 accumulator registers a thread per
+// output).  The contractions (Q K^T over D, dO V^T over Dv) stream
+// through a ring of (A box, B box) pairs, 64 rows by 64 columns each, so
+// shared memory does not grow with the width; the slice's operand (V, K,
+// Q or dO, 64 rows by up to four boxes) streams through a second ring.
+// The two warpgroups split each contraction's boxes (pair i to warpgroup
+// i % 2) and add each other's partial sums through shared memory, so the
+// scores are computed once per block; a + b == b + a in IEEE arithmetic,
+// so both hold the same bits.  The tiles wait on the pairs' latency more
+// than on any bandwidth, so the pair ring takes the room (8 stages) and
+// the slice ring one stage, whose next tile loads under the next scores
+// (4 / 6 pair stages and two slice stages, or 10 with one exchange buffer,
+// measured slower on the H100).  Where V is wider than 256 and the grid
+// large (fwd_wide_bf16) the forward's slices are 512 columns, four boxes
+// a warpgroup (Wide512): the scores are then computed once for twice the
+// columns, the slice tile takes the room of two pair stages, and the
+// producer's warpgroup hands its registers to the consumers (at 168 a
+// thread their 128 accumulators spilled and ptxas serialised the wgmma).
+constexpr int kSliceStages = 1;
+constexpr uint32_t kPairBytes = 2 * kTileBox;             // 16 KB
+// a partial accumulator of each warpgroup, double-buffered
+constexpr uint32_t kXchBytes = 2 * 2 * 32 * kWG * sizeof(float);   // 64 KB
+
+// the rings in shared memory: 1024-byte-aligned pairs (kPairs stages) and
+// slice tiles (kBoxes boxes), the exchange buffers, the slice rows' (lse2,
+// delta) beside each slice stage, then the barriers
+template <int kPairs, int kBoxes>
+struct WideSmem {
+  static constexpr int kPairStages = kPairs;
+  static constexpr int kSliceBoxes = kBoxes;
+  static constexpr uint32_t kSliceBytes = kBoxes * kTileBox;
+  static constexpr size_t bytes() {
+    return 1024 + kPairs * kPairBytes + kSliceStages * kSliceBytes + kXchBytes +
+           kSliceStages * 2 * kTile * sizeof(float) + 2 * (kPairs + kSliceStages) * 8;
+  }
+  uint32_t pairs, slices, bars;
+  float* xch;     // generic pointers, for plain loads and stores
+  float* stats;
+  __device__ explicit WideSmem(uint8_t* raw) {
+    pairs = aligned_base(raw);
+    slices = pairs + kPairStages * kPairBytes;
+    const uint32_t x = slices + kSliceStages * kSliceBytes;
+    const uint32_t st = x + kXchBytes;
+    xch = reinterpret_cast<float*>(raw + (x - smem_addr(raw)));
+    stats = reinterpret_cast<float*>(raw + (st - smem_addr(raw)));
+    bars = st + kSliceStages * 2 * kTile * sizeof(float);
+  }
+  __device__ uint32_t pair_full(int s) const { return bars + 8 * s; }
+  __device__ uint32_t pair_empty(int s) const { return bars + 8 * (kPairStages + s); }
+  __device__ uint32_t slice_full(int s) const { return bars + 8 * (2 * kPairStages + s); }
+  __device__ uint32_t slice_empty(int s) const {
+    return bars + 8 * (2 * kPairStages + kSliceStages + s);
+  }
+  // thread 0, before the block's first __syncthreads: a pair is filled by
+  // the producer's lane 0 and emptied by the warpgroup that takes it; a
+  // slice stage is filled by the producer's 32 lanes (lane 0's TMA, the
+  // others' stats) and emptied by both consumer warpgroups
+  __device__ void init() const {
+    for (int s = 0; s < kPairStages; ++s) {
+      mbar_init(pair_full(s), 1);
+      mbar_init(pair_empty(s), kWG);
+    }
+    for (int s = 0; s < kSliceStages; ++s) {
+      mbar_init(slice_full(s), 32);
+      mbar_init(slice_empty(s), 2 * kWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+};
+// slices of 256 columns, two boxes a warpgroup: the backward, and the
+// forward where V is at most 256 wide; the forward's slices of 512
+using Wide256 = WideSmem<8, 4>;
+using Wide512 = WideSmem<6, 8>;
+static_assert(Wide256::bytes() <= 232448 && Wide512::bytes() <= 232448,
+              "the wide kernels' shared memory");
+
+// producer, lane 0: pair `pi` of the ring, box `col` of rows [ra, ra + 64)
+// of head ha of A and of rows [rb, rb + 64) of head hb of B
+template <typename SM>
+__device__ __forceinline__ void put_pair(const SM& sm, int& pi, const CUtensorMap* ma,
+                                         int ha, int ra, const CUtensorMap* mb, int hb,
+                                         int rb, int col, int batch) {
+  constexpr int kPairStages = SM::kPairStages;
+  const int s = pi % kPairStages;
+  if (pi >= kPairStages) mbar_wait(sm.pair_empty(s), ((pi / kPairStages) & 1) ^ 1);
+  const uint32_t dst = sm.pairs + s * kPairBytes;
+  mbar_expect_tx(sm.pair_full(s), kPairBytes);
+  tma_load(dst, ma, sm.pair_full(s), col, ha, ra, batch);
+  tma_load(dst + kTileBox, mb, sm.pair_full(s), col, hb, rb, batch);
+  ++pi;
+}
+
+// producer warp: slice stage of step t, `boxes` boxes from column c_lo of
+// rows [row, row + 64) of one head; each lane first writes its share of
+// the stats (`stats(stage's stats)`)
+template <typename SM, typename F>
+__device__ __forceinline__ void put_slice(const SM& sm, int t, const CUtensorMap* map,
+                                          int head, int row, int batch, int c_lo,
+                                          int boxes, int lane, F&& stats) {
+  constexpr uint32_t kSliceBytes = SM::kSliceBytes;
+  const int s = t % kSliceStages;
+  if (t >= kSliceStages) mbar_wait(sm.slice_empty(s), ((t / kSliceStages) & 1) ^ 1);
+  stats(sm.stats + s * 2 * kTile);
+  if (lane == 0) {
+    mbar_expect_tx(sm.slice_full(s), boxes * kTileBox);
+    for (int j = 0; j < boxes; ++j) {
+      tma_load(sm.slices + s * kSliceBytes + j * kTileBox, map, sm.slice_full(s),
+               c_lo + j * kBox, head, row, batch);
+    }
+  } else {
+    mbar_arrive(sm.slice_full(s));
+  }
+}
+
+// one box of a contraction: d (+)= A B^T over its 64 columns (zero past the
+// true width, from the TMA fill), four k steps, fenced as a batch of its own
+// (the wait on its pair spins while the last box's products run)
+template <typename SM>
+__device__ __forceinline__ void box_dots(const SM& sm, float (&d)[32], int pi, bool first) {
+  constexpr int kPairStages = SM::kPairStages;
+  const int s = pi % kPairStages;
+  mbar_wait(sm.pair_full(s), (pi / kPairStages) & 1);
+  const uint32_t a = sm.pairs + s * kPairBytes;
+  wg_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    mma_ss(d, desc(a + kk * 32), desc(a + kTileBox + kk * 32), !first || kk > 0);
+  }
+  wg_commit();
+}
+
+// consumer warpgroup wg: its part of d = A B^T over the `boxes` pairs of
+// the ring from pair pi on (pair i is warpgroup i % 2's), box after box
+// into one accumulator, each pair handed back once its products are done
+// while the next box's run; zero where it has no box.  pi moves past all
+// of them.
+template <typename SM>
+__device__ __forceinline__ void ring_dots(const SM& sm, float (&d)[32], int& pi, int boxes,
+                                          int wg) {
+  constexpr int kPairStages = SM::kPairStages;
+  int c = (wg ^ pi) & 1;
+  if (c < boxes) {
+    box_dots(sm, d, pi + c, true);
+    for (c += 2; c < boxes; c += 2) {
+      box_dots(sm, d, pi + c, false);
+      wg_wait<1>();
+      mbar_arrive(sm.pair_empty((pi + c - 2) % kPairStages));
+    }
+    wg_wait();
+    hold(d);
+    mbar_arrive(sm.pair_empty((pi + c - 2) % kPairStages));
+  } else {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[i] = 0.f;
+  }
+  pi += boxes;
+}
+
+// both consumer warpgroups: d = my partial + the other's (exchange n of
+// the block, buffer n % 2; the barrier of exchange n + 1 keeps buffer n % 2
+// from being rewritten before it is read)
+template <typename SM>
+__device__ __forceinline__ void exchange(const SM& sm, float (&d)[32], int& n, int wg) {
+  const int t = threadIdx.x % kWG;
+  float* buf = sm.xch + (n & 1) * 2 * 32 * kWG;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) buf[(wg * 32 + i) * kWG + t] = d[i];
+  asm volatile("bar.sync 1, %0;" ::"n"(2 * kWG) : "memory");
+#pragma unroll
+  for (int i = 0; i < 32; ++i) d[i] += buf[((1 - wg) * 32 + i) * kWG + t];
+  ++n;
+}
+
+// consumer warpgroup: acc[w] += A x box first + w of step t's slice tile,
+// w < kW, then the stage is handed back.  A box past the slice's live
+// ones holds stale data: it feeds only accumulator columns past the true
+// width, which are never stored.
+template <int kW, typename SM>
+__device__ __forceinline__ void slice_product(const SM& sm, float (&acc)[kW][32],
+                                              uint32_t (&a)[4][4], int t, int first) {
+  const int s = t % kSliceStages;
+  const uint32_t tile = sm.slices + s * SM::kSliceBytes + first * kTileBox;
+  wg_fence();
+#pragma unroll
+  for (int w = 0; w < kW; ++w) hold(acc[w]);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int w = 0; w < kW; ++w) {
+      mma_rs<64>(acc[w], a[kk], desc(tile + w * kTileBox + kk * 16 * kRowBytes));
+    }
+  }
+  wg_commit();
+  wg_wait();
+#pragma unroll
+  for (int w = 0; w < kW; ++w) hold(acc[w]);
+  hold(a);
+  mbar_arrive(sm.slice_empty(s));
+}
+
+template <typename SM>
+__device__ __forceinline__ void slice_wait(const SM& sm, int t) {
+  mbar_wait(sm.slice_full(t % kSliceStages), (t / kSliceStages) & 1);
+}
+
+// Forward past 256.  Grid (Dv slices x Hq, B, 64-row q tiles), the last q
+// tile (the longest causal rows) first.  Both consumer warpgroups take
+// the block's 64 rows and compute S = Q K^T over all of D, streamed in
+// (Q box, K box) pairs; each adds P V over its kW boxes of the slice
+// (slices of 2 kW boxes: 256 columns, or 512 where V is wider than 256).
+template <int kW>
+__global__ void __launch_bounds__(kW == 4 ? kThreadsKV : kThreadsH, 1)
+wide_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
+                const __grid_constant__ CUtensorMap k_map,
+                const __grid_constant__ CUtensorMap v_map,
+                __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int batch,
+                int tq, int tk, int hq, int hkv, int d, int dv, int slices,
+                float scale_log2, int causal, int prefix_len) {
+  using SM = std::conditional_t<kW == 2, Wide256, Wide512>;
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const SM sm(smem_raw);
+  const unsigned x = blockIdx.x, hs = static_cast<unsigned>(hq) * slices;
+  const int sl = static_cast<int>(x % slices);
+  const int h = static_cast<int>(x / slices % hq);
+  const int b = static_cast<int>(x / hs % batch);
+  const int n_rt = (tq + kTile - 1) / kTile;
+  const int q0 = (n_rt - 1 - static_cast<int>(x / hs / batch)) * kTile;
+  const int hk = h / (hq / hkv);
+  const int q_off = tk - tq;
+  const int c_lo = sl * SM::kSliceBoxes * kBox;
+  const int k_end = causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_off)) : tk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int n_d = (d + kBox - 1) / kBox;
+  const int n_sb = min(SM::kSliceBoxes, (dv - c_lo + kBox - 1) / kBox);
+
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp >= 8) {   // producer: warp 8 (with four boxes a warpgroup, its
+                     // warpgroup gives its registers to the consumers)
+    if (kW == 4) {
+      regs_give<kProducerRegs>();
+      if (warp > 8) return;
+    }
+    int pi = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (lane == 0) {
+        for (int c = 0; c < n_d; ++c) {
+          put_pair(sm, pi, &q_map, h, q0, &k_map, hk, t * kTile, c * kBox, b);
+        }
+      }
+      __syncwarp();
+      put_slice(sm, t, &v_map, hk, t * kTile, b, c_lo, n_sb, lane, [](float*) {});
+    }
+    return;
+  }
+
+  if (kW == 4) regs_take<kConsumerRegs>();
+  const int wg = warp / 4;
+  const int row0 = q0 + 16 * (warp % 4) + lane / 4;
+  int last_key[2];
+  visible_keys(last_key, row0, q_off, tk, causal, prefix_len);
+  float o[kW][32];
+#pragma unroll
+  for (int w = 0; w < kW; ++w) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[w][i] = 0.f;
+  }
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  int pi = 0, n_x = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    float sc[32];
+    ring_dots(sm, sc, pi, n_d, wg);
+    exchange(sm, sc, n_x, wg);
+    const bool edge = k0 + kTile > tk ||
+                      (causal && k0 + kTile - 1 > q0 + q_off && k0 + kTile > prefix_len);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      float s = sc[j] * scale_log2;
+      if (edge && k0 + acc_col(j, lane) > last_key[acc_half(j)]) s = kNegInf;
+      sc[j] = s;
+      mx[acc_half(j)] = fmaxf(mx[acc_half(j)], s);
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = quad_max(mx[r]);
+      corr[r] = ex2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float p = ex2(sc[j] - m[acc_half(j)]);
+      l[acc_half(j)] += p;
+      sc[j] = p;
+#pragma unroll
+      for (int w = 0; w < kW; ++w) o[w][j] *= corr[acc_half(j)];
+    }
+    uint32_t a[4][4];
+    to_a(sc, a);
+    slice_wait(sm, t);
+    slice_product(sm, o, a, t, kW * wg);
+  }
+
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] = quad_sum(l[r]);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int w = 0; w < kW; w += 2) {
+    store_rows<128>(out, o[w], o[w + 1], inv, row0, tq, b, hq, h, lane, dv,
+                    c_lo + (kW * wg + w) * kBox);
+  }
+  if (lane % 4 == 0 && wg == 0 && sl == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + 8 * r;
+      if (row < tq) {
+        lse[(static_cast<size_t>(b) * hq + h) * tq + row] = m[r] * kLn2 + logf(l[r]);
+      }
+    }
+  }
+}
+
+// dQ past 256.  Grid (D slices x Hq, B, 64-row q tiles), longest causal
+// rows first.  Per k tile both warpgroups compute S = Q K^T over D and dP
+// = dO V^T over Dv, streamed in pairs; each adds dS K over its two boxes
+// of the slice of K's columns.
+__global__ void __launch_bounds__(kThreadsH, 1)
+wide_dq_kernel(const __grid_constant__ CUtensorMap q_map,
+               const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const float* __restrict__ lse, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dq, int batch, int tq, int tk, int hq,
+               int hkv, int d, int dv, int slices, float scale, float scale_log2,
+               int causal, int prefix_len) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Wide256 sm(smem_raw);
+  const unsigned x = blockIdx.x, hs = static_cast<unsigned>(hq) * slices;
+  const int sl = static_cast<int>(x % slices);
+  const int h = static_cast<int>(x / slices % hq);
+  const int b = static_cast<int>(x / hs % batch);
+  const int n_rt = (tq + kTile - 1) / kTile;
+  const int q0 = (n_rt - 1 - static_cast<int>(x / hs / batch)) * kTile;
+  const int hk = h / (hq / hkv);
+  const int q_off = tk - tq;
+  const int c_lo = sl * kSliceW;
+  const int k_end = causal ? min(tk, max(prefix_len, min(q0 + kTile, tq) + q_off)) : tk;
+  const int n_tiles = (k_end + kTile - 1) / kTile;
+  const int n_d = (d + kBox - 1) / kBox, n_dv = (dv + kBox - 1) / kBox;
+  const int n_sb = min(Wide256::kSliceBoxes, (d - c_lo + kBox - 1) / kBox);
+
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {   // producer
+    int pi = 0;
+    for (int t = 0; t < n_tiles; ++t) {
+      if (lane == 0) {
+        for (int c = 0; c < n_d; ++c) {
+          put_pair(sm, pi, &q_map, h, q0, &k_map, hk, t * kTile, c * kBox, b);
+        }
+        for (int c = 0; c < n_dv; ++c) {
+          put_pair(sm, pi, &do_map, h, q0, &v_map, hk, t * kTile, c * kBox, b);
+        }
+      }
+      __syncwarp();
+      put_slice(sm, t, &k_map, hk, t * kTile, b, c_lo, n_sb, lane, [](float*) {});
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int row0 = q0 + 16 * (warp % 4) + lane / 4;
+  int last_key[2];
+  visible_keys(last_key, row0, q_off, tk, causal, prefix_len);
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const size_t at = (static_cast<size_t>(b) * hq + h) * tq + min(row0 + 8 * r, tq - 1);
+    lse2[r] = lse[at] * kLog2e;
+    dlt[r] = delta[at];
+  }
+  float g[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) g[0][i] = g[1][i] = 0.f;
+
+  int pi = 0, n_x = 0;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kTile;
+    float sc[32], dp[32];
+    ring_dots(sm, sc, pi, n_d, wg);
+    ring_dots(sm, dp, pi, n_dv, wg);
+    exchange(sm, sc, n_x, wg);
+    exchange(sm, dp, n_x, wg);
+    const bool edge = k0 + kTile > tk ||
+                      (causal && k0 + kTile - 1 > q0 + q_off && k0 + kTile > prefix_len);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int r = acc_half(j);
+      float p = ex2(sc[j] * scale_log2 - lse2[r]);
+      if (edge && k0 + acc_col(j, lane) > last_key[r]) p = 0.f;
+      sc[j] = p * (dp[j] - dlt[r]);
+    }
+    uint32_t a[4][4];
+    to_a(sc, a);
+    slice_wait(sm, t);
+    slice_product(sm, g, a, t, 2 * wg);
+  }
+  const float mul[2] = {scale, scale};
+  store_rows<128>(dq, g[0], g[1], mul, row0, tq, b, hq, h, lane, d, c_lo + 2 * wg * kBox);
+}
+
+// dK and dV past 256.  Grid (slices x head groups x Hkv, B, 64-key tiles),
+// the first keys (the most q tiles) first; slices = D's slices (dK) then
+// Dv's (dV).  For each query head of its group and each q tile from the
+// diagonal on, both warpgroups compute S^T = K Q^T over D (and, for dK,
+// dP^T = V dO^T over Dv), streamed in pairs; each adds dS^T Q (dK) or P^T
+// dO (dV) over its two boxes of the slice.  The producer's lanes write the
+// q tile's lse and delta beside its slice stage.  With one group a block
+// stores dK (times scale) or dV; with more (a kv head's query heads split
+// over `groups` blocks, so that a long causal GQA run fills the card),
+// each stores its f32 partial sums in `part` and wide_dkdv_combine adds
+// them in group order.
+__global__ void __launch_bounds__(kThreadsH, 1)
+wide_dkdv_kernel(const __grid_constant__ CUtensorMap q_map,
+                 const __grid_constant__ CUtensorMap k_map,
+                 const __grid_constant__ CUtensorMap v_map,
+                 const __grid_constant__ CUtensorMap do_map,
+                 const float* __restrict__ lse, const float* __restrict__ delta,
+                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                 float* __restrict__ part, int batch, int tq, int tk, int hq, int hkv,
+                 int d, int d_v, int dk_slices, int dv_slices, int groups, float scale,
+                 float scale_log2, int causal, int prefix_len) {
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  const Wide256 sm(smem_raw);
+  const int slices = dk_slices + dv_slices;
+  const unsigned x = blockIdx.x, sg = static_cast<unsigned>(slices) * groups;
+  const unsigned hs = sg * static_cast<unsigned>(hkv);
+  const int sl = static_cast<int>(x % slices);
+  const int grp = static_cast<int>(x / slices % groups);
+  const int hk = static_cast<int>(x / sg % hkv);
+  const int b = static_cast<int>(x / hs % batch);
+  const int k0 = static_cast<int>(x / hs / batch) * kTile;
+  const bool is_dk = sl < dk_slices;
+  const int width = is_dk ? d : d_v;
+  const int c_lo = (is_dk ? sl : sl - dk_slices) * kSliceW;
+  const int gs = hq / hkv / groups;   // the query heads of this block's group
+  const int h0 = hk * (hq / hkv) + grp * gs;
+  const int q_off = tk - tq;
+  const int q_begin = causal && k0 >= prefix_len ? max(0, k0 - q_off) / kTile * kTile : 0;
+  const int per_head = (tq - q_begin + kTile - 1) / kTile;
+  const int n_steps = gs * per_head;
+  const int n_d = (d + kBox - 1) / kBox, n_dv = (d_v + kBox - 1) / kBox;
+  const int n_sb = min(Wide256::kSliceBoxes, (width - c_lo + kBox - 1) / kBox);
+
+  if (threadIdx.x == 0) sm.init();
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == 8) {   // producer
+    int pi = 0;
+    for (int i = 0; i < n_steps; ++i) {
+      const int h = h0 + i / per_head;
+      const int qs = q_begin + (i % per_head) * kTile;
+      if (lane == 0) {
+        for (int c = 0; c < n_d; ++c) {
+          put_pair(sm, pi, &k_map, hk, k0, &q_map, h, qs, c * kBox, b);
+        }
+        if (is_dk) {
+          for (int c = 0; c < n_dv; ++c) {
+            put_pair(sm, pi, &v_map, hk, k0, &do_map, h, qs, c * kBox, b);
+          }
+        }
+      }
+      __syncwarp();
+      put_slice(sm, i, is_dk ? &q_map : &do_map, h, qs, b, c_lo, n_sb, lane,
+                [&](float* st) {
+                  for (int r = lane; r < kTile; r += 32) {
+                    const int row = qs + r;
+                    const size_t at = (static_cast<size_t>(b) * hq + h) * tq + row;
+                    st[r] = row < tq ? lse[at] * kLog2e : 0.f;
+                    st[kTile + r] = row < tq ? delta[at] : 0.f;
+                  }
+                });
+    }
+    return;
+  }
+
+  const int wg = warp / 4;
+  const int key0 = k0 + 16 * (warp % 4) + lane / 4;   // this thread's keys: key0, key0 + 8
+  // the first row that sees each of this thread's keys (none past Tk;
+  // causal: the key's diagonal, unless it is in the prefix)
+  int first_row[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key0 + 8 * r;
+    first_row[r] = key >= tk ? INT_MAX : causal && key >= prefix_len ? key - q_off : 0;
+  }
+  float acc[2][32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+
+  int pi = 0, n_x = 0;
+  for (int i = 0; i < n_steps; ++i) {
+    const int qs = q_begin + (i % per_head) * kTile;
+    float sc[32], dp[32];
+    ring_dots(sm, sc, pi, n_d, wg);
+    if (is_dk) ring_dots(sm, dp, pi, n_dv, wg);
+    exchange(sm, sc, n_x, wg);
+    if (is_dk) exchange(sm, dp, n_x, wg);
+    slice_wait(sm, i);
+    const float* st = sm.stats + (i % kSliceStages) * 2 * kTile;
+    const bool edge = qs + kTile > tq || k0 + kTile > tk ||
+                      (causal && k0 + kTile - 1 > qs + q_off && k0 + kTile > prefix_len);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const int col = acc_col(j, lane);
+      float p = ex2(sc[j] * scale_log2 - st[col]);
+      if (edge && (qs + col < first_row[acc_half(j)] || qs + col >= tq)) p = 0.f;
+      sc[j] = is_dk ? p * (dp[j] - st[kTile + col]) : p;
+    }
+    uint32_t a[4][4];
+    to_a(sc, a);
+    slice_product(sm, acc, a, i, 2 * wg);
+  }
+  if (groups == 1) {
+    const float mul[2] = {is_dk ? scale : 1.f, is_dk ? scale : 1.f};
+    store_rows<128>(is_dk ? dk : dv, acc[0], acc[1], mul, key0, tk, b, hkv, hk, lane,
+                    width, c_lo + 2 * wg * kBox);
+    return;
+  }
+  // part: dK's groups (groups, B, Tk, Hkv, D), then dV's (groups, B, Tk,
+  // Hkv, Dv)
+  const size_t rows = static_cast<size_t>(batch) * tk * hkv;
+  float* out = part + (is_dk ? grp * rows * d : groups * rows * d + grp * rows * d_v);
+  const int col0 = c_lo + 2 * wg * kBox;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = key0 + 8 * half;
+    if (row >= tk) continue;
+    float* dst = out + ((static_cast<size_t>(b) * tk + row) * hkv + hk) * width + col0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int i = 4 * j + 2 * half, c = acc_col(i, lane);
+      if (c < width - col0) {
+        *reinterpret_cast<float2*>(dst + c) = make_float2(acc[0][i], acc[0][i + 1]);
+      }
+      if (kBox + c < width - col0) {
+        *reinterpret_cast<float2*>(dst + kBox + c) = make_float2(acc[1][i], acc[1][i + 1]);
+      }
+    }
+  }
+}
+
+// dK and dV from the head groups' partial sums: each pair of elements sums
+// its groups' in group order (a fixed order: the same bits run after run),
+// dK times scale, and is written in bf16
+__global__ void __launch_bounds__(256)
+wide_dkdv_combine(const float* __restrict__ part, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, long long n_dk, long long n_dv,
+                  int groups, float scale) {
+  const long long e = 2 * (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x);
+  if (e >= n_dk + n_dv) return;
+  const bool is_dk = e < n_dk;
+  const long long n = is_dk ? n_dk : n_dv;
+  const float* src = is_dk ? part + e : part + groups * n_dk + (e - n_dk);
+  float2 sum = make_float2(0.f, 0.f);
+  for (int g = 0; g < groups; ++g) {
+    const float2 x = *reinterpret_cast<const float2*>(src + g * n);
+    sum.x += x.x;
+    sum.y += x.y;
+  }
+  const float mul = is_dk ? scale : 1.f;
+  *reinterpret_cast<__nv_bfloat162*>(is_dk ? dk + e : dv + (e - n_dk)) =
+      __floats2bfloat162_rn(sum.x * mul, sum.y * mul);
+}
+
 }  // namespace hopper
 
 // ---------------------------------------------------------------------- //
@@ -1889,8 +2510,22 @@ bool bad_shape(int b, int tq, int tk, int hq, int hkv, int d, int dv, int causal
          d % 8 != 0 || d < 8 || dv % 8 != 0 || dv < 8 || prefix_len < 0;
 }
 
-// heads past 256 columns run the wide kernels, on either dtype
+// heads past 256 columns run the wide kernels
 bool wide(int d, int dv) { return d > kSliceW || dv > kSliceW; }
+
+constexpr int kSmCount = 132;   // the H100's SMs
+
+// The kernels a call launches, a static rule by dtype and width (the
+// wrapper's flash_attention.route states the same): float32 on the CUDA
+// cores, exact (flash_* up to 256, flash_wide_* past it); bfloat16 on the
+// tensor cores (hopper::fwd/dq/dkdv_kernel up to 256, hopper::wide_* past
+// it).  -1 for a dtype neither route takes.
+enum Route { kF32 = 0, kBf16 = 1, kF32Wide = 2, kBf16Wide = 3 };
+
+int route_of(int dtype, int d, int dv) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return wide(d, dv) ? (dtype == 1 ? kBf16Wide : kF32Wide) : (dtype == 1 ? kBf16 : kF32);
+}
 
 int slices_of(int width) { return (width + kSliceW - 1) / kSliceW; }
 
@@ -2085,7 +2720,12 @@ EncodeTiled encoder() {
 bool tensor_map(CUtensorMap* map, const void* ptr, int b, int t, int h, int d,
                 int rows) {
   const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
+  // the encoder fails on a thread with no current context (autograd's
+  // backward thread before any launch there): cudaFree(nullptr) binds the
+  // device's primary context, once a thread, and does nothing else
+  thread_local bool bound = false;
+  if (!bound) bound = cudaFree(nullptr) == cudaSuccess;
+  if (encode == nullptr || !bound) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d), static_cast<cuuint64_t>(h),
                               static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(b)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(d) * 2,
@@ -2180,6 +2820,128 @@ int bwd_bf16(const void* q, const void* k, const void* v, const void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
+// bfloat16 past 256: every tensor map boxes 64 rows, at the true widths
+int fwd_wide_bf16(const void* q, const void* k, const void* v, void* o, float* lse,
+                  int b, int tq, int tk, int hq, int hkv, int d, int dv, float scale,
+                  int causal, int prefix_len, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!tensor_map(&mq, q, b, tq, hq, d, hopper::kTile) ||
+      !tensor_map(&mk, k, b, tk, hkv, d, hopper::kTile) ||
+      !tensor_map(&mv, v, b, tk, hkv, dv, hopper::kTile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // Slices of 512 columns where V is wider than 256 and the grid of
+  // 256-column slices fills two waves of the H100's SMs: the scores are
+  // then computed once for twice the columns (absorbed MLA's MQA prefill:
+  // 0.071 against 0.107 ms), while a thinner grid would leave SMs idle
+  // ((576, 512) at B 2 x T 256: 0.020 against 0.017).  Both give the same
+  // bits; the choice moves time only.
+  const long long blocks256 = static_cast<long long>(hq) * slices_of(dv) * b *
+                              blocks_of(tq, hopper::kTile);
+  const bool v512 = dv > kSliceW && blocks256 >= 2 * kSmCount;
+  const int slices = (dv + (v512 ? 2 : 1) * kSliceW - 1) / ((v512 ? 2 : 1) * kSliceW);
+  const unsigned grid =
+      grid_x(static_cast<long long>(hq) * slices, b, blocks_of(tq, hopper::kTile));
+  if (grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = v512 ? hopper::wide_fwd_kernel<4> : hopper::wide_fwd_kernel<2>;
+  const size_t smem = v512 ? hopper::Wide512::bytes() : hopper::Wide256::bytes();
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
+  kernel<<<grid, v512 ? hopper::kThreadsKV : hopper::kThreadsH, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, b, tq, tk, hq, hkv, d, dv, slices,
+      scale * hopper::kLog2e, causal, prefix_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the bf16 wide dK/dV kernel splits each kv head's query heads over blocks
+// until its grid has this many (four waves of the H100's SMs)
+constexpr long long kKvSplitBlocks = 4LL * kSmCount;
+
+// Over how many dK/dV blocks the bf16 wide backward splits each kv head's
+// group of hq / hkv query heads: the smallest divisor of the group that
+// brings the grid (64-key tiles x kv heads x column slices of d and d_v x
+// batch) to kKvSplitBlocks, or the whole group.  Causal GQA gives the first
+// key tiles the most work (every q tile of every head), so without the split
+// a few blocks run long while most SMs idle.  A function of the shape alone,
+// so the bits stay fixed.
+int kv_groups(int b, int tk, int hq, int hkv, int d, int d_v) {
+  const int g = hq / hkv;
+  const long long blocks = static_cast<long long>(b) * hkv *
+                           blocks_of(tk, hopper::kTile) * (slices_of(d) + slices_of(d_v));
+  for (int n = 1; n < g; ++n) {
+    if (g % n == 0 && blocks * n >= kKvSplitBlocks) return n;
+  }
+  return g;
+}
+
+// Bytes of the f32 workspace the backward takes: the split's partial sums,
+// (groups, B, Tk, Hkv, d) then (groups, B, Tk, Hkv, d_v); 0 where it does not
+// split (every route but the bf16 wide one, or a group of one block).
+long long bwd_workspace_bytes(int dtype, int b, int tk, int hq, int hkv, int d, int d_v) {
+  if (route_of(dtype, d, d_v) != kBf16Wide) return 0;
+  const int groups = kv_groups(b, tk, hq, hkv, d, d_v);
+  return groups == 1 ? 0
+                     : 4LL * groups * b * tk * hkv * (static_cast<long long>(d) + d_v);
+}
+
+// The split's f32 partial sums go to `part` (bwd_workspace_bytes) and the
+// combine kernel adds them in group order.
+int bwd_wide_bf16(const void* q, const void* k, const void* v, const void* o,
+                  const void* dout, const float* lse, float* delta, void* dq, void* dk,
+                  void* dv, int b, int tq, int tk, int hq, int hkv, int d, int d_v,
+                  float scale, int causal, int prefix_len, float* part,
+                  cudaStream_t stream) {
+  const int groups = kv_groups(b, tk, hq, hkv, d, d_v);
+  if (groups > 1 && part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const int dq_slices = slices_of(d);
+  const unsigned dq_grid =
+      grid_x(static_cast<long long>(hq) * dq_slices, b, blocks_of(tq, hopper::kTile));
+  const unsigned kv_grid =
+      grid_x(static_cast<long long>(hkv) * groups * (dq_slices + slices_of(d_v)), b,
+             blocks_of(tk, hopper::kTile));
+  if (dq_grid == 0 || kv_grid == 0) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  if (!tensor_map(&mq, q, b, tq, hq, d, hopper::kTile) ||
+      !tensor_map(&mdo, dout, b, tq, hq, d_v, hopper::kTile) ||
+      !tensor_map(&mk, k, b, tk, hkv, d, hopper::kTile) ||
+      !tensor_map(&mv, v, b, tk, hkv, d_v, hopper::kTile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  using bf16 = __nv_bfloat16;
+  const long long rows = static_cast<long long>(b) * tq * hq;
+  flash_bwd_delta_kernel<bf16><<<static_cast<unsigned>((rows + kWarps - 1) / kWarps),
+                                 kThreads, 0, stream>>>(static_cast<const bf16*>(o),
+                                                        static_cast<const bf16*>(dout),
+                                                        delta, b, tq, hq, d_v);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+
+  auto dq_k = hopper::wide_dq_kernel;
+  err = allow_smem(dq_k, hopper::Wide256::bytes());
+  if (err) return err;
+  dq_k<<<dq_grid, hopper::kThreadsH, hopper::Wide256::bytes(), stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), b, tq, tk, hq, hkv, d, d_v,
+      dq_slices, scale, scale * hopper::kLog2e, causal, prefix_len);
+  err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+
+  auto kv_k = hopper::wide_dkdv_kernel;
+  err = allow_smem(kv_k, hopper::Wide256::bytes());
+  if (err) return err;
+  kv_k<<<kv_grid, hopper::kThreadsH, hopper::Wide256::bytes(), stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), part,
+      b, tq, tk, hq, hkv, d, d_v, dq_slices, slices_of(d_v), groups, scale,
+      scale * hopper::kLog2e, causal, prefix_len);
+  err = static_cast<int>(cudaGetLastError());
+  if (err || groups == 1) return err;
+  const long long keys = static_cast<long long>(b) * tk * hkv;
+  const long long pairs = keys * (d + d_v) / 2;
+  hopper::wide_dkdv_combine<<<static_cast<unsigned>((pairs + 255) / 256), 256, 0, stream>>>(
+      part, static_cast<bf16*>(dk), static_cast<bf16*>(dv), keys * d, keys * d_v, groups,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // f(D, DV) for the smallest (qk, v) head-dim pair the bfloat16 route
 // instantiates that holds (d, dv) (by D + DV, then D): the square 64, 80, 96,
 // 128 and 256 (PaliGemma's heads), and (96, 64), MiniCPM3's MLA heads
@@ -2211,9 +2973,12 @@ int with_head_dims(int d, int dv, F&& f) {
 
 // dtype codes: 0 = float32 (CUDA-core route), 1 = bfloat16 (tensor-core
 // route, at the instantiation with_head_dims picks); both take any d and dv
-// that are multiples of 8 up to 256, and past 256 (either of them) both run
-// the wide kernels on the CUDA cores.  q, k, v, o and the gradients share the
-// dtype, lse and delta are f32.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
+// that are multiples of 8, and past 256 (either of them) each runs its wide
+// kernels (route_of).  q, k, v, o and the gradients share the dtype, lse
+// and delta are f32.  The backward's workspace holds
+// repro_flash_bwd_workspace's bytes (null where that is 0): on the bfloat16
+// wide route, the f32 partial sums of the dK/dV blocks over which it splits
+// each kv head's query heads.  Tensors are contiguous: q, dq (B, Tq, Hq, d), k, dk (B, Tk, Hkv, d),
 // v, dv (B, Tk, Hkv, dv), o, dO (B, Tq, Hq, dv); the bfloat16 route's are
 // 16-byte aligned.  prefix_len >= 0: with causal, the first prefix_len keys
 // are visible to every row (prefix-LM); without, it changes nothing.
@@ -2221,30 +2986,31 @@ extern "C" int repro_flash_fwd(int dtype, const void* q, const void* k,
                                const void* v, void* o, void* lse, int b, int tq,
                                int tk, int hq, int hkv, int d, int dv, float scale,
                                int causal, int prefix_len, void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, dv, causal, prefix_len) ||
-      (dtype != 0 && dtype != 1)) {
+  const int r = route_of(dtype, d, dv);
+  if (bad_shape(b, tq, tk, hq, hkv, d, dv, causal, prefix_len) || r < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (wide(d, dv)) {
-    return dtype == 1
-        ? fwd_wide<__nv_bfloat16>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale,
-                                  causal, prefix_len, s)
-        : fwd_wide<float>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal,
-                          prefix_len, s);
+  switch (r) {
+    case kBf16Wide:
+      return fwd_wide_bf16(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal,
+                           prefix_len, s);
+    case kF32Wide:
+      return fwd_wide<float>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal,
+                             prefix_len, s);
+    case kBf16:
+      return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
+        return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
+            q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len, s);
+      });
+    default:
+      // the forward's accumulators are the output's dv columns
+      return with_nc(dv, [&](auto nc) {
+        return fwd<float, decltype(nc)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv,
+                                               scale, causal, prefix_len, s);
+      });
   }
-  if (dtype == 1) {
-    return with_head_dims(d, dv, [&](auto dim, auto dim_v) {
-      return fwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, l, b, tq, tk, hq, hkv, d, dv, scale, causal, prefix_len, s);
-    });
-  }
-  // the forward's accumulators are the output's dv columns
-  return with_nc(dv, [&](auto nc) {
-    return fwd<float, decltype(nc)::value>(q, k, v, o, l, b, tq, tk, hq, hkv, d, dv,
-                                           scale, causal, prefix_len, s);
-  });
 }
 
 extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
@@ -2252,41 +3018,57 @@ extern "C" int repro_flash_bwd(int dtype, const void* q, const void* k,
                                const void* lse, void* delta, void* dq, void* dk,
                                void* dv, int b, int tq, int tk, int hq, int hkv,
                                int d, int d_v, float scale, int causal, int prefix_len,
-                               void* stream) {
-  if (bad_shape(b, tq, tk, hq, hkv, d, d_v, causal, prefix_len) ||
-      (dtype != 0 && dtype != 1)) {
+                               void* workspace, void* stream) {
+  const int r = route_of(dtype, d, d_v);
+  if (bad_shape(b, tq, tk, hq, hkv, d, d_v, causal, prefix_len) || r < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* dl = static_cast<float*>(delta);
-  if (wide(d, d_v)) {
-    return dtype == 1
-        ? bwd_wide<__nv_bfloat16>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq,
-                                  hkv, d, d_v, scale, causal, prefix_len, s)
-        : bwd_wide<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d,
-                          d_v, scale, causal, prefix_len, s);
+  switch (r) {
+    case kBf16Wide:
+      return bwd_wide_bf16(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d,
+                           d_v, scale, causal, prefix_len,
+                           static_cast<float*>(workspace), s);
+    case kF32Wide:
+      return bwd_wide<float>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d,
+                             d_v, scale, causal, prefix_len, s);
+    case kBf16:
+      return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
+        return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
+            q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d, d_v, scale,
+            causal, prefix_len, s);
+      });
+    default:
+      // dQ's accumulators are d wide, dK's d and dV's d_v: one count for both
+      return with_nc(d > d_v ? d : d_v, [&](auto nc) {
+        return bwd<float, decltype(nc)::value>(q, k, v, o, dout, l, dl, dq, dk, dv, b,
+                                               tq, tk, hq, hkv, d, d_v, scale, causal,
+                                               prefix_len, s);
+      });
   }
-  if (dtype == 1) {
-    return with_head_dims(d, d_v, [&](auto dim, auto dim_v) {
-      return bwd_bf16<decltype(dim)::value, decltype(dim_v)::value>(
-          q, k, v, o, dout, l, dl, dq, dk, dv, b, tq, tk, hq, hkv, d, d_v, scale,
-          causal, prefix_len, s);
-    });
-  }
-  // dQ's accumulators are d wide, dK's d and dV's d_v: one count for both
-  return with_nc(d > d_v ? d : d_v, [&](auto nc) {
-    return bwd<float, decltype(nc)::value>(q, k, v, o, dout, l, dl, dq, dk, dv, b, tq,
-                                           tk, hq, hkv, d, d_v, scale, causal, prefix_len,
-                                           s);
-  });
 }
 
-// The head dims (D, DV) the bfloat16 route runs a (d, dv) call at, the
-// instantiation with_head_dims picks, as D * 65536 + DV; -1 for a pair no
-// tensor-core instantiation takes (past 256: the wide kernels).  d and dv are the widths the wrapper passes (multiples
-// of 8).
+// Bytes of f32 workspace repro_flash_bwd takes for this call (0: none; -1
+// for a shape it refuses), the widths those the wrapper passes.
+extern "C" long long repro_flash_bwd_workspace(int dtype, int b, int tk, int hq, int hkv,
+                                               int d, int d_v) {
+  if (bad_shape(b, 1, tk, hq, hkv, d, d_v, 0, 0) || route_of(dtype, d, d_v) < 0) return -1;
+  return bwd_workspace_bytes(dtype, b, tk, hq, hkv, d, d_v);
+}
+
+// The kernels a (d, dv) call in dtype code `dtype` launches (route_of: 0
+// float32, 1 bfloat16, 2 float32 past 256, 3 bfloat16 past 256; -1 for an
+// unknown dtype).
+extern "C" int repro_flash_route(int dtype, int d, int dv) { return route_of(dtype, d, dv); }
+
+// The head dims (D, DV) the bfloat16 route runs a (d, dv) call at, as D *
+// 65536 + DV: up to 256 the instantiation with_head_dims picks; past 256
+// (the wide kernels, whose box counts are taken at run time) d and dv
+// themselves.  d and dv are the widths the wrapper passes (multiples of 8).
 extern "C" int repro_flash_bf16_dims(int d, int dv) {
+  if (wide(d, dv)) return d * 65536 + dv;
   int dims = -1;
   with_head_dims(d, dv, [&](auto dim, auto dim_v) {
     dims = decltype(dim)::value * 65536 + decltype(dim_v)::value;
@@ -2296,10 +3078,16 @@ extern "C" int repro_flash_bf16_dims(int d, int dv) {
 }
 
 // Dynamic shared memory of the bfloat16 route's kernels at head dims (d, dv)
-// (kernel 0 forward, 1 dQ, 2 dK/dV; the delta kernel's is static), for the
-// build report; -1 for a pair the route does not take.
+// (kernel 0 forward, 1 dQ, 2 dK/dV; the delta and combine kernels' is
+// static), for the build report: past 256 the wide kernels' (kernel 0
+// with dv past 256: the 512-column forward's, which such a call takes
+// where its grid is large).
 extern "C" int repro_flash_bf16_smem(int kernel, int d, int dv) {
   if (kernel < 0 || kernel > 2) return -1;
+  if (wide(d, dv)) {
+    return static_cast<int>(kernel == 0 && dv > kSliceW ? hopper::Wide512::bytes()
+                                                        : hopper::Wide256::bytes());
+  }
   int bytes = -1;
   with_head_dims(d, dv, [&](auto dim, auto dim_v) {
     constexpr int D = decltype(dim)::value, DV = decltype(dim_v)::value;

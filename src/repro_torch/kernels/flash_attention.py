@@ -27,20 +27,23 @@ one that holds it (``with_head_dims`` in the CUDA source picks it;
 boxes read the columns past them as zeros) and its stores stopping at
 them.  Zero columns change neither Q K^T nor the kept columns of P V,
 and the softmax scale stays the true width's.  Past :data:`WIDE_ABOVE`
-columns (D or Dv; absorbed MLA decode attends at (576, 512)) both dtypes
-run the source's wide kernels on the CUDA cores: the contractions stream
-through shared memory in 64-column boxes and the output columns are
-split over blocks, each block recomputing the same scores, so the bits
-stay fixed.  A bfloat16 call runs there as f32 tiles, with p and dS
-rounded to bf16 where they enter a product, as on the tensor cores; it
-is a simple kernel, not a fast one.
+columns (D or Dv; absorbed MLA attends at (576, 512)) each dtype runs
+the source's wide kernels, a static rule by dtype and width
+(:func:`route`, which the CUDA launchers follow): bfloat16 on the tensor
+cores (``wide_fwd_kernel``, ``wide_dq_kernel``, ``wide_dkdv_kernel``:
+every contraction streamed through shared memory in 64-column boxes fed
+by TMA, the box count taken at run time, so every width runs), float32
+exact on the CUDA cores (``flash_wide_*``: the same boxes staged as f32
+tiles).  Both split the output columns over blocks of 256, each block
+recomputing the same scores, so no sum crosses blocks and the bits stay
+fixed.
 
 :func:`flash_attention` is the differentiable entry point
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
 :func:`flash_attention_bwd` launch the kernels and count their launches
-in ``.launches``.  They take CUDA tensors only; the plain version lives
-in :mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops`
-picks between the two by device.
+in ``.launches``, and by :func:`route` in ``.by_route``.  They take CUDA
+tensors only; the plain version lives in :mod:`repro_torch.kernels.ref`
+and :mod:`repro_torch.kernels.ops` picks between the two by device.
 """
 
 from __future__ import annotations
@@ -58,11 +61,22 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # MLA heads); float32 takes any D and Dv that are multiples of 8 up to 256
 BF16_HEAD_DIMS = (64, 80, 96, 128, 256)
 BF16_PAIRS = tuple((d, d) for d in BF16_HEAD_DIMS) + ((96, 64),)
-# past this many columns (D or Dv) both dtypes run the wide kernels
+# past this many columns (D or Dv) both dtypes run their wide kernels
 WIDE_ABOVE = 256
+# the CUDA source's kernels (forward, dQ, dK/dV) of each route; every
+# backward pass also launches a delta kernel first
+ROUTE_KERNELS = {
+    "bf16": ("fwd_kernel", "dq_kernel", "dkdv_kernel"),
+    "bf16_wide": ("wide_fwd_kernel", "wide_dq_kernel", "wide_dkdv_kernel"),
+    "f32": ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"),
+    "f32_wide": ("flash_wide_fwd_kernel", "flash_wide_dq_kernel",
+                 "flash_wide_dkdv_kernel"),
+}
+# the source's route codes (repro_flash_route)
+ROUTE_CODES = {"f32": 0, "bf16": 1, "f32_wide": 2, "bf16_wide": 3}
 
 __all__ = ["bf16_kernel_dims", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "is_wide", "padded_dims"]
+           "flash_attention_bwd", "is_wide", "padded_dims", "route"]
 
 
 def padded_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -78,12 +92,27 @@ def is_wide(d: int, dv: int) -> bool:
     return max(padded_dims(d, dv)) > WIDE_ABOVE
 
 
+def route(dtype: torch.dtype, d: int, dv: int) -> str:
+    """The kernels a (d, dv) call in ``dtype`` launches on the card, a
+    static rule by dtype and padded width (the CUDA source's ``route_of``
+    applies the same; :data:`ROUTE_KERNELS` names each route's kernels):
+    ``"bf16"`` the tensor-core kernels at :func:`bf16_kernel_dims`,
+    ``"bf16_wide"`` the wide tensor-core kernels past :data:`WIDE_ABOVE`
+    (either width), ``"f32"`` and ``"f32_wide"`` the CUDA-core kernels
+    (exact float32: tensor cores would round to TF32)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"q must be float32 or bfloat16, got {dtype}")
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    return name + "_wide" if is_wide(d, dv) else name
+
+
 def bf16_kernel_dims(d: int, dv: int) -> Tuple[int, int]:
     """The widths (D, Dv) the bfloat16 route runs a (d, dv) call at: the
     tensor cores' instantiation as the CUDA source picks it (the smallest
     pair of :data:`BF16_PAIRS` that holds both, by D + Dv, then D), or
-    :func:`padded_dims` for a wide call (:func:`is_wide`).  Loads the
-    built library for the former, so it runs where the kernels do."""
+    :func:`padded_dims` for a wide call (:func:`is_wide`: the wide kernels
+    take their box counts at run time).  Loads the built library for the
+    former, so it runs where the kernels do."""
     if is_wide(d, dv):
         return padded_dims(d, dv)
     dims = _build.library("flash_attention").repro_flash_bf16_dims(
@@ -192,17 +221,24 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.by_route[route(q.dtype, kd, kdv)] += 1
     return _unpad(out, dv), lse
 
 
 flash_attention_fwd.launches = 0
+# the same launches by route (:func:`route`)
+flash_attention_fwd.by_route = dict.fromkeys(ROUTE_CODES, 0)
 
 
 def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
                         scale: Optional[float] = None, prefix_len: int = 0
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One backward pass (three kernel launches: delta = dO . O, dQ, and
-    dK/dV): ``(dq, dk, dv)`` in the inputs' dtype, dv of V's width."""
+    dK/dV; a fourth, which adds the dK/dV partial sums, where the bf16 wide
+    route splits each kv head's query heads over blocks, as the CUDA source
+    decides from the shape and sizes the f32 workspace for, which it asks of
+    ``repro_flash_bwd_workspace``): ``(dq, dk, dv)`` in the inputs' dtype,
+    dv of V's width."""
     _check(q, k, v, causal, prefix_len, out=out, dout=dout)
     b, tq, hq, d = q.shape
     tk, hkv, dv_ = k.shape[1], k.shape[2], v.shape[3]
@@ -215,18 +251,29 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _build.library("flash_attention")
+    nbytes = lib.repro_flash_bwd_workspace(_DTYPE_CODE[q.dtype], b, tk, hq, hkv,
+                                           kd, kdv)
+    if nbytes < 0:
+        raise ValueError(f"the backward takes no {tuple(q.shape)} over "
+                         f"{tuple(k.shape)} call")
+    work = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+            if nbytes else None)
     err = lib.repro_flash_bwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, kd,
         kdv, _scale(d, scale), int(causal), _prefix(k, prefix_len),
+        None if work is None else work.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 3     # delta, dQ and dK/dV
+    n = 3 if work is None else 4     # delta, dQ, dK/dV and the split's sum
+    flash_attention_bwd.launches += n
+    flash_attention_bwd.by_route[route(q.dtype, kd, kdv)] += n
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, dv_)
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.by_route = dict.fromkeys(ROUTE_CODES, 0)
 
 
 class _FlashAttention(torch.autograd.Function):

@@ -16,13 +16,16 @@ Tolerances:
 * int8 values and scales: bit-equal (same float32 math, same rounding).
 """
 
+import ctypes
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from repro.kernels import paged_attention as jpa
-from repro_torch.kernels import ops
+from repro_torch.kernels import _build, ops
 from repro_torch.kernels import paged_attention as tpa
 from repro_torch.kernels import ref as tref
 from repro_torch.memory import codecs as tcodecs
@@ -735,9 +738,10 @@ def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
     """A bf16 pair without an instantiation of its own, (96, 32), runs at
     the next one, and a width that is not a multiple of 8 at the next
     multiple: both reach the device check.  So do widths above 256 (the
-    wide kernels), 264 and absorbed MLA's (576, 512), and a width below 1
-    is refused by name; V must share K's batch, length and heads; dO and O
-    must be V's width."""
+    wide kernels: bf16 on the tensor cores at the padded widths themselves,
+    f32 on the CUDA cores), 264 and absorbed MLA's (576, 512), and a width
+    below 1 is refused by name; V must share K's batch, length and heads;
+    dO and O must be V's width."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(torch.bfloat16) for x in flash_inputs(
@@ -763,6 +767,8 @@ def test_flash_refuses_dv_pairs_and_shapes_it_has_no_kernel_for():
         tfa.flash_attention_fwd(mla, mla, torch.zeros((1, 16, 2, 512)))
     assert tfa.bf16_kernel_dims(576, 512) == (576, 512)
     assert tfa.bf16_kernel_dims(300, 20) == (304, 24)
+    assert tfa.route(torch.bfloat16, 576, 512) == "bf16_wide"
+    assert tfa.route(torch.float32, 576, 512) == "f32_wide"
     with pytest.raises(ValueError, match="v head dim 0 must be >= 1"):
         tfa.flash_attention_fwd(q, k, v[..., :0])
     lse = torch.zeros((1, 2, 16), dtype=torch.float32)
@@ -780,18 +786,81 @@ def test_flash_new_widths_reach_the_cuda_only_refusal(d, dv, dtype):
     to the device check; the wrappers hand the kernels :func:`padded_dims`
     (the next multiple of 8, fewer than 8 columns more), the bf16 route
     runs those at the smallest instantiated pair that holds them, and past
-    256 (either width) both dtypes run the wide kernels."""
+    256 (either width) each dtype runs its wide kernels: bf16 the
+    tensor-core ones, f32 the CUDA-core ones."""
     from repro_torch.kernels import flash_attention as tfa
 
     q, k, v, dout = (t(x).to(dtype) for x in flash_inputs(
         (1, 16, 16, 4, 2, d, dv, True), seed=21))
     kd, kdv = tfa.padded_dims(d, dv)
     assert 0 <= kd - d < 8 and 0 <= kdv - dv < 8 and kd % 8 == kdv % 8 == 0
+    cores = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert tfa.route(dtype, d, dv) == (
+        cores + "_wide" if max(kd, kdv) > tfa.WIDE_ABOVE else cores)
     lse = torch.zeros((1, 4, 16), dtype=torch.float32)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_fwd(q, k, v)
     with pytest.raises(ValueError, match="CUDA"):
         tfa.flash_attention_bwd(q, k, v, dout, lse, dout)
+
+
+@pytest.mark.parametrize("dtype,d,dv,want", [
+    (torch.bfloat16, 96, 64, "bf16"), (torch.bfloat16, 250, 250, "bf16"),
+    (torch.bfloat16, 256, 256, "bf16"), (torch.bfloat16, 257, 64, "bf16_wide"),
+    (torch.bfloat16, 264, 264, "bf16_wide"), (torch.bfloat16, 40, 296, "bf16_wide"),
+    (torch.bfloat16, 576, 512, "bf16_wide"), (torch.float32, 1, 1, "f32"),
+    (torch.float32, 256, 200, "f32"), (torch.float32, 264, 8, "f32_wide"),
+    (torch.float32, 576, 512, "f32_wide")])
+def test_flash_route_rule_by_dtype_and_width(dtype, d, dv, want):
+    """The wrappers' static rule: the dtype picks the cores (bf16 the
+    tensor cores; f32 the CUDA cores, exact, where tensor cores would round
+    to TF32) and a padded width past ``WIDE_ABOVE`` (either of D and Dv)
+    the wide kernels.  Each route's three kernels are ``__global__``
+    functions of the CUDA source, and a dtype neither route takes is
+    refused."""
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels import flash_attention as tfa
+
+    assert tfa.route(dtype, d, dv) == want
+    assert set(tfa.ROUTE_KERNELS) == set(tfa.ROUTE_CODES)
+    source = (Path(tfa.__file__).parent / "csrc" / "flash_attention.cu").read_text()
+    for name in tfa.ROUTE_KERNELS[want]:
+        assert re.search(rf"\n{name}\(", source), name
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.route(torch.float16, d, dv)
+
+
+def _c_signatures(name: str) -> dict:
+    """Each ``extern "C"`` entry point of ``csrc/<name>.cu``: its return
+    type and its parameters' C types, mapped to ctypes."""
+    text = (_build.CSRC / f"{name}.cu").read_text()
+    kinds = {"int": ctypes.c_int, "float": ctypes.c_float,
+             "long long": ctypes.c_longlong}
+    out = {}
+    for m in re.finditer(r'extern "C" ([\w ]+?) (repro_\w+)\(([^)]*)\)', text):
+        params = [p.strip() for p in m.group(3).split(",") if p.strip()]
+        out[m.group(2)] = (kinds[m.group(1)], [
+            ctypes.c_void_p if "*" in p else kinds[p.rsplit(" ", 1)[0]]
+            for p in params])
+    return out
+
+
+@pytest.mark.parametrize("lib,fn", [
+    (lib, fn) for lib, fns in _build.SIGNATURES.items() for fn in fns])
+def test_kernel_library_signatures_match_their_sources(lib, fn):
+    """The ctypes signatures the loader sets (``_build.SIGNATURES``, and
+    ``RESTYPES`` where an entry point returns no C int) are the CUDA
+    sources' own, parameter for parameter: a mismatch would pass garbage
+    to a launch on the card, with no error here."""
+    from repro_torch.kernels import _build
+
+    declared = _c_signatures(lib)
+    assert fn in declared, f"{fn} is not an extern \"C\" entry point of {lib}.cu"
+    restype, argtypes = declared[fn]
+    assert _build.RESTYPES.get(fn, ctypes.c_int) is restype
+    assert _build.SIGNATURES[lib][fn] == argtypes
 
 
 def test_flash_padding_keeps_the_plain_result():

@@ -129,7 +129,7 @@ def _split_main(rank, store_path, out_dir):
             except ValueError as e:
                 refused.append(str(e))
         mods = split_mesh(mesh, 2, axis="data")
-        eng = OffloadEngine(mods)
+        eng = OffloadEngine(mods, device="cpu")
         x = torch.arange(16.0).reshape(4, 4)
         double = lambda a: a * 2
         y = eng.offload(double, Module.BOOSTER, x, in_specs=[P("data", None)],
@@ -168,7 +168,8 @@ def _xpic_main(rank, store_path, out_dir):
                             timeout=timedelta(seconds=TIMEOUT_S))
     out = {}
     try:
-        eng = OffloadEngine(split_mesh(Mesh((2, 1), ("data", "model")), 1))
+        eng = OffloadEngine(split_mesh(Mesh((2, 1), ("data", "model")), 1),
+                            device="cpu")
         for fail in (True, False):
             with tempfile.TemporaryDirectory() as root:
                 cluster = VirtualCluster(n_cluster=2, n_booster=2, root=Path(root))
@@ -350,3 +351,14 @@ def test_xpic_survives_the_booster_failure(results, reference):
         assert results[f"xpic{r}"]["stats_True"] == [1, 0]
         assert results[f"xpic{r}"]["stats_False"] == [0, 0]
     assert reference["stats_True"] == [1, 0]
+
+
+def test_default_engine_keeps_received_blocks_on_the_card():
+    """Built without a device, the engine keeps the blocks it receives on
+    the card, as every entry point of the port does unless the caller asks
+    for the CPU (the tests above ask by name).  Needs no card: nothing is
+    received."""
+    from repro_torch.core.offload import OffloadEngine
+
+    assert OffloadEngine({}).device.type == "cuda"
+    assert OffloadEngine({}, device="cpu").device.type == "cpu"

@@ -93,7 +93,7 @@ def build() -> dict:
         lib = ctypes.CDLL(str(so))
         for fn, argtypes in _build.SIGNATURES["flash_attention"].items():
             getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
+            getattr(lib, fn).restype = _build.RESTYPES.get(fn, ctypes.c_int)
         libs[label] = lib
     return libs
 
