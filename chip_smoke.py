@@ -23,17 +23,24 @@ check:
    lengths (up to 256) and long-context ones (up to 4096),
    starcoder2-7b's (36 over 4 kv heads, head dim 128) short and long (up
    to 2048) and an odd one (7 query heads per kv head, head dim 72, page
-   5), ragged lengths, shared prefix pages and out-of-range table
-   entries, float32 and bfloat16, the multi-token fold and the int8
-   kernel; every paged kernel's registers and spills (ptxas; none may
-   spill); then at the three timed shapes (phi3 serving and long
-   context, starcoder2-7b long; bf16, L2 cold): two launches
-   bit-identical, each row alone equal to its row in the batch and the
-   fold's rows equal to single-row calls, and the device time of kernel,
-   plain version and ``scaled_dot_product_attention`` (each backend
-   pinned in turn, the fastest kept) beside the bound, gated: at most
-   0.020 ms at phi3's serving shape, at most 3x the bound at its long
-   context, and no slower than SDPA at each;
+   5), and the wide route (heads past 256: D 320 with 8 query heads over
+   2, D 576 with 16 over 1, at lengths up to 256 and at phi3's
+   long-context lengths), ragged lengths, shared prefix pages and
+   out-of-range table entries, float32 and bfloat16, the multi-token fold
+   and the int8 kernel; every paged kernel's registers and spills
+   (ptxas; none may spill) and each wide instantiation's HMMA count
+   (SASS; every bf16-query one must have some); then at the seven timed
+   shapes (phi3 serving and long context, starcoder2-7b long, the four
+   wide ones; bf16, L2 cold): two launches bit-identical, each row alone
+   equal to its row in the batch and the fold's rows equal to single-row
+   calls, and the device time of kernel, plain version and
+   ``scaled_dot_product_attention`` (each backend pinned in turn, the
+   fastest kept) beside the bound, gated: at most 0.020 ms at phi3's
+   serving shape, at most 3x the bound at its long context, the bf16
+   kernel at most 4x the bound at both wide long-context shapes, and no
+   slower than SDPA at each; the wide route's goals (0.020 ms short, 2x
+   and 3x the bound long) reported beside, and its launches in the
+   serving phases counted by route and gated at 0;
 2. ``Serve.local`` serving 8 requests with speculative decode (spec_k=3),
    4 slots, round-robin parking: tokens/s, steps, acceptance, kernel
    launches (one per layer per token), peak memory;
@@ -746,14 +753,33 @@ PAGED_SHAPES = {
     # g = 7 (passes of 4, 2 and 1 query heads), int8 rows of D % 16 = 8
     # (8-byte copies), an odd page, a row one past a span and one on it
     "Hq=28, Hkv=4, D=72, page 5": (3, 28, 4, 72, 5, 13, [65, 64, 7]),
+    # the wide route (paged_wide_kernel): phase 10's REPAIR_PAGED widths
+    # past 256, then at phi3's long-context lengths; D 576 over one kv head
+    # is absorbed MLA's latent width (DeepSeek-V2/V3: 512 + 64)
+    "wide D=320 (Hq=8, Hkv=2)": (4, 8, 2, 320, 16, 16, [1, 63, 130, 256]),
+    "wide D=576 (Hq=16, Hkv=1)": (4, 16, 1, 576, 16, 16, [1, 63, 130, 256]),
+    "wide D=320 long context": (4, 8, 2, 320, 16, 256,
+                                [4096, 3001, 1024, 200]),
+    "wide D=576 long context": (4, 16, 1, 576, 16, 256,
+                                [4096, 3001, 1024, 200]),
 }
-# timed shapes (bf16, cold L2) and their gates, each on both kernels: a
-# fixed ceiling in ms, a multiple of the bound, and no slower than SDPA
+# timed shapes (bf16, cold L2) and their gates: a fixed ceiling in ms and
+# a multiple of the bound, on both kernels (``bf16_bound_x``: on the bf16
+# pool's kernel only), and no slower than SDPA
 PAGED_TIMED = {
     "serving": ("phi3 (Hq=Hkv=32, D=96)", dict(max_ms=0.020)),
     "long_context": ("phi3 long context", dict(max_bound_x=3.0)),
     "starcoder2": ("starcoder2-7b long context", {}),
+    "wide_320": ("wide D=320 (Hq=8, Hkv=2)", {}),
+    "wide_576": ("wide D=576 (Hq=16, Hkv=1)", {}),
+    "wide_320_long": ("wide D=320 long context", dict(bf16_bound_x=4.0)),
+    "wide_576_long": ("wide D=576 long context", dict(bf16_bound_x=4.0)),
 }
+# goals of the wide route, reported beside its times and not gated: at
+# most 0.020 ms at the short shapes, and at the long shapes 2x the bound
+# (bf16 pool) and 3x (int8 pool)
+PAGED_WIDE_GOALS = {"short_ms": 0.020, "bf16_bound_x": 2.0,
+                    "int8_bound_x": 3.0}
 
 
 def ptxas_report(log: str) -> dict:
@@ -768,8 +794,17 @@ def ptxas_report(log: str) -> dict:
         elif cur and "spill stores" in line:
             stores, loads = re.findall(r"(\d+) bytes spill", line)
             report[cur].update(spill_stores=int(stores), spill_loads=int(loads))
+            frame = re.search(r"(\d+) bytes stack frame", line)
+            if frame:
+                report[cur]["stack_frame"] = int(frame[1])
         elif cur and "Used" in line and "registers" in line:
             report[cur]["registers"] = int(re.search(r"Used (\d+) registers", line)[1])
+    return demangled(report)
+
+
+def demangled(report: dict) -> dict:
+    """``report`` keyed by demangled kernel names where ``cu++filt`` is at
+    hand ("f<...>"), else as given."""
     filt = Path(_build.nvcc()).parent / "cu++filt"
     names = list(report)
     if filt.exists() and names:
@@ -782,21 +817,58 @@ def ptxas_report(log: str) -> dict:
     return report
 
 
+def paged_sass(library) -> dict:
+    """HMMA (mma.sync) instructions of each wide paged kernel
+    instantiation (``paged_wide_kernel``) in a built library's SASS
+    (``cuobjdump -sass``)."""
+    sass = subprocess.run([cuobjdump(), "-sass", str(library)],
+                          capture_output=True, text=True, check=True).stdout
+    counts, cur = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m[1] if "paged_wide_kernel" in m[1] else None
+            if cur:
+                counts[cur] = 0
+        elif cur:
+            counts[cur] += " HMMA." in line
+    return demangled(counts)
+
+
+def bf16_query(kernel: str) -> bool:
+    """Whether a wide instantiation's name (demangled or not) takes bf16
+    queries: its first template argument."""
+    return re.search(r"paged_wide_kernel(<|I)(13)?__nv_bfloat16", kernel) is not None
+
+
 def paged_ptxas() -> dict:
     """Registers and spills of every paged kernel instantiation, from the
-    build's ``-Xptxas -v`` report; raises if one spills."""
+    build's ``-Xptxas -v`` report, and the HMMA count of each wide one
+    (SASS); raises if one spills, or if a wide instantiation that takes
+    bf16 queries has no HMMA (its scores would not be on the tensor
+    cores)."""
     log = _build.build_log.get("paged_attention")
     if log is None:
         raise AssertionError("no ptxas report: paged_attention.cu was not built "
                              "by this run (delete build/repro_torch_kernels)")
     report = ptxas_report(log)
+    hmma = paged_sass(_build.library_path("paged_attention"))
+    for key, count in hmma.items():
+        report.setdefault(key, {})["HMMA"] = count
     for key, entry in report.items():
-        say(f"  ptxas {key}: {entry.get('registers')} registers, spill stores "
-            f"{entry.get('spill_stores')} B / loads {entry.get('spill_loads')} B")
+        say(f"  ptxas {key}: {entry.get('registers')} registers, stack frame "
+            f"{entry.get('stack_frame')} B, spill stores {entry.get('spill_stores')} B "
+            f"/ loads {entry.get('spill_loads')} B"
+            + (f"; SASS HMMA {entry['HMMA']}" if "HMMA" in entry else ""))
     spilled = [k for k, e in report.items()
                if e.get("spill_stores", 0) or e.get("spill_loads", 0)]
     if not report or spilled:
         raise AssertionError(f"paged kernels that spill: {spilled}")
+    if len(hmma) != 4:
+        raise AssertionError(f"wide paged instantiations in the SASS: {sorted(hmma)}")
+    no_tc = [k for k, n in hmma.items() if bf16_query(k) and not n]
+    if no_tc or not any(map(bf16_query, hmma)):
+        raise AssertionError(f"bf16-query wide paged kernels without HMMA: {no_tc}")
     return report
 
 
@@ -1003,6 +1075,9 @@ def paged_times(key, label, gates, failures) -> dict:
         if "max_bound_x" in gates:
             limits.append((f"{gates['max_bound_x']}x its bound",
                            gates["max_bound_x"] * bound))
+        if "bf16_bound_x" in gates and name == "paged_attention":
+            limits.append((f"{gates['bf16_bound_x']}x its bound",
+                           gates["bf16_bound_x"] * bound))
         for what, limit in limits:
             if ms > limit:
                 failures.append(f"{name} at {label}: {ms:.5f} ms > {what} "
@@ -1014,10 +1089,12 @@ def paged_times(key, label, gates, failures) -> dict:
 
 def phase1() -> dict:
     say("== phase 1: kernels against their plain versions")
-    errs = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+    t0 = time.perf_counter()
+    errs = {route: {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+            for route in pa.ROUTES}
     for label, shape in PAGED_SHAPES.items():
         for dtype in (torch.float32, torch.bfloat16):
-            paged_checks(label, shape, dtype, errs)
+            paged_checks(label, shape, dtype, errs[pa.route(shape[3])])
             release()
     torch.cuda.synchronize()
     ptxas = paged_ptxas()
@@ -1025,6 +1102,8 @@ def phase1() -> dict:
     failures = []
     times = {key: paged_times(key, label, gates, failures)
              for key, (label, gates) in PAGED_TIMED.items()}
+    wide_keys = [key for key in PAGED_TIMED if key.startswith("wide")]
+    goals = paged_wide_goals({key: times[key] for key in wide_keys})
     rec = {}
     for name, replaces in (("paged_attention",
                             "src/repro/kernels/paged_attention.py:130"),
@@ -1036,15 +1115,59 @@ def phase1() -> dict:
             "replaces": replaces, "launches": 0,
             "design": "split-sequence spans of "
                       f"{pa.split_tokens()} positions, in-order combine",
-            "max_abs_err": errs[name], **times["serving"][name],
+            "max_abs_err": errs["narrow"][name], **times["serving"][name],
             "at_long_context": times["long_context"][name],
             "at_starcoder2": times["starcoder2"][name],
             "ptxas": ptxas,
         }
+        rec[name + "_wide"] = {
+            "name": name + "_wide", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": replaces, "launches": 0,
+            "design": "paged_wide_kernel past 256 columns: each span's whole "
+                      "K and V rows by bulk copies, all in flight at once (a "
+                      "cp.async ring of 64-column boxes where they do not "
+                      "fit); scores of bf16 queries and p V over bf16 pools "
+                      "on mma.sync; the narrow route's spans, combine in "
+                      "128-column slices",
+            "main_path": "no configuration has a paged head past 256 (MLA "
+                         "decodes in latent space with einsums): the serving "
+                         "phases gate these launches at 0; phase 1 holds the "
+                         "kernel against the plain version",
+            "max_abs_err": errs["wide"][name],
+            **times["wide_576_long"][name],
+            **{f"at_{key}": times[key][name] for key in wide_keys
+               if key != "wide_576_long"},
+            "goals": goals[name],
+            "ptxas": {k: e for k, e in ptxas.items() if "paged_wide_kernel" in k},
+        }
+    say(f"  phase 1 took {time.perf_counter() - t0:.1f} s")
     if failures:
         raise AssertionError("paged kernel gates failed:\n  "
                              + "\n  ".join(failures))
     return rec
+
+
+def paged_wide_goals(times: dict) -> dict:
+    """Whether each wide kernel met ``PAGED_WIDE_GOALS`` at each wide timed
+    shape (reported, not gated)."""
+    out = {}
+    for name, bound_x in (("paged_attention", PAGED_WIDE_GOALS["bf16_bound_x"]),
+                          ("paged_attention_quant",
+                           PAGED_WIDE_GOALS["int8_bound_x"])):
+        out[name] = {}
+        for key, rec in times.items():
+            r = rec[name]
+            if key.endswith("_long"):
+                goal, limit = f"<= {bound_x}x the bound", bound_x * r["bound_ms"]
+            else:
+                goal, limit = (f"<= {PAGED_WIDE_GOALS['short_ms']} ms",
+                               PAGED_WIDE_GOALS["short_ms"])
+            out[name][key] = {"goal": goal, "limit_ms": limit,
+                              "ms": r["ms"], "met": r["ms"] <= limit}
+            say(f"  goal {name} at {key}: {r['ms']:.5f} ms, {goal} "
+                f"({limit:.5f} ms): {'met' if r['ms'] <= limit else 'missed'}")
+    return out
 
 
 # ---------------------------------------------------------------------- #
@@ -1065,8 +1188,22 @@ def requests(vocab: int):
 
 
 def reset_launches() -> None:
-    pa.paged_attention.launches = 0
-    pa.paged_attention_quant.launches = 0
+    for fn in (pa.paged_attention, pa.paged_attention_quant):
+        fn.launches = 0
+        fn.by_route = dict.fromkeys(fn.by_route, 0)
+
+
+def wide_serving_launches(name: str, kernels: dict) -> None:
+    """The wide route's launches in the serving run just ended, counted by
+    route where the wrapper launches (phi3's heads are 96 wide: 0, gated),
+    into the kernels line's wide entry."""
+    fn = getattr(pa, name)
+    wide = fn.by_route["wide"]
+    say(f"  {name} launches by route: {fn.by_route}")
+    if wide or fn.by_route["narrow"] != fn.launches:
+        raise AssertionError(f"{name}: {fn.by_route} by route, {fn.launches} "
+                             "in all; the served heads are narrow")
+    kernels[name + "_wide"]["launches"] = wide
 
 
 def release() -> None:
@@ -5215,6 +5352,7 @@ def main() -> int:
         raise AssertionError("the serve run never parked and resumed")
     kernels["paged_attention"]["launches"] = launches
     kernels["paged_attention"]["launches_per_token_iteration"] = launches / iters
+    wide_serving_launches("paged_attention", kernels)
 
     say("== phase 3: the same requests with spec_k=0")
     outs3, stats, wall, iters, n_layers = serve(ServeConfig(spec_k=0, **SERVE),
@@ -5238,6 +5376,7 @@ def main() -> int:
     kernels["paged_attention_quant"]["launches"] = launches
     kernels["paged_attention_quant"]["launches_per_token_iteration"] = (
         launches / iters)
+    wide_serving_launches("paged_attention_quant", kernels)
     same = sum(a == b for o5, o2 in zip(outs5, outs2) for a, b in zip(o5, o2))
     total = sum(min(len(o5), len(o2)) for o5, o2 in zip(outs5, outs2))
     say(f"  int8 token agreement with phase 2 over their common tokens: "

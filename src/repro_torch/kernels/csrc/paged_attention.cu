@@ -49,9 +49,10 @@
 //   rounds it), int8 pages keep p in f32 and p V on the CUDA cores.
 // - g query heads go in passes of up to kMaxGroup over the same staged
 //   rows; loops over heads stop at g, so no work goes to padding.
-// - Heads wider than 256 columns keep the spans and the combine and stream
-//   D through shared memory in 64-column boxes (paged_wide_kernel); any
-//   multiple of 8 runs, and the wrapper pads the rest.
+// - Heads wider than 256 columns keep the spans and the combine
+//   (paged_wide_kernel, below): whole rows staged by bulk copies, scores
+//   of bf16 queries on the tensor cores whatever g; the wrapper pads a
+//   width to a multiple of 8.
 //
 // Combine: two CUDA launches per call (one when no row can have two
 // spans).  Each span writes (m_s, l_s, acc_s) in f32 to a workspace (B,
@@ -319,21 +320,21 @@ __device__ __forceinline__ int spans_of(const Args& a, int b) {
 // past the row's last span is masked once the length is in.  Thread s
 // then puts the weight e^(m_s - m) and l_s e^(m_s - m) of span s in shared
 // memory, and every thread sums l and its columns' acc in the span order
-// 0, 1, ...  The block has kCombineThreads threads, kCols columns each in
-// a pass; a head wider than a pass takes more, each over all its spans
-// again.  ws holds 2 * kChunk floats.
-template <typename TQ>
+// 0, 1, ...  The block has kBlock threads, kCols columns each in a
+// pass, over the head's columns c_lo .. c_hi-1; more columns than a pass
+// take more, each over all its spans again.  ws holds 2 * kChunk floats.
+template <typename TQ, int kBlock = kCombineThreads>
 __device__ __forceinline__ void combine_head(const Args& a, size_t head, int b,
-                                             float* ws) {
-  constexpr int kBlock = kCombineThreads;
-  constexpr int kCols = (256 + kBlock - 1) / kBlock;   // columns per thread
+                                             float* ws, int c_lo, int c_hi) {
+  static_assert(kChunk <= kBlock, "a thread per span of a step");
+  constexpr int kCols = (256 + kCombineThreads - 1) / kCombineThreads;   // columns per thread
   const int tid = threadIdx.x;
   const int d = a.d;
   const float* st = a.stats + head * a.max_splits * 2;
   const float* pt = a.part + head * a.max_splits * d;
   float* w_s = ws;
   float* lw_s = ws + kChunk;
-  for (int c_base = 0; c_base < d; c_base += kCols * kBlock) {
+  for (int c_base = c_lo; c_base < c_hi; c_base += kCols * kBlock) {
     float m = kNegInf, l = 0.f, acc[kCols] = {};
     int n = a.max_splits;   // the spans the workspace holds, until the length is in
     for (int s0 = 0; s0 < n; s0 += kChunk) {
@@ -344,7 +345,7 @@ __device__ __forceinline__ void combine_head(const Args& a, size_t head, int b,
         const int col = c_base + tid + c * kBlock;
 #pragma unroll
         for (int i = 0; i < kChunk; ++i) {
-          x[c][i] = i < cap && col < d
+          x[c][i] = i < cap && col < c_hi
               ? __ldcg(pt + static_cast<size_t>(s0 + i) * d + col) : 0.f;
         }
       }
@@ -389,7 +390,7 @@ __device__ __forceinline__ void combine_head(const Args& a, size_t head, int b,
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
       const int col = c_base + tid + c * kBlock;
-      if (col < d) {
+      if (col < c_hi) {
         store(static_cast<TQ*>(a.out) + head * d + col, acc[c] / fmaxf(l, 1e-30f));
       }
     }
@@ -833,35 +834,263 @@ paged_split_kernel(const Args a) {
   }
 }
 
-// Heads wider than 256 columns.  The staged span outgrows shared memory
-// there (64 f32 key and value rows of D 576 are 297 KB), so such a head keeps
-// the split, the spans, the workspace and the combine, and streams D
-// through shared memory in boxes of kWideBox columns as f32 (int8 rows
-// unscaled): thread (position, head set) adds each box's part of its
-// scores to their slots in shared memory (no other thread writes them);
-// span_softmax takes them as one part; then thread (column, head set) sums
-// p V box after box, for every head of a pass of up to kMaxGroup.  Each sum
-// runs in one thread in an order the source fixes, so the bits stay
-// fixed.
-// A simple kernel, not a fast one: no configuration has such heads.
-constexpr int kWideBox = 64;
-constexpr int kWideStride = kWideBox + 1;    // odd: a column's rows in distinct banks
-constexpr int kHeadSets = kThreads / kSplit;
-static_assert(kThreads == kHeadSets * kWideBox, "a thread per (column, head set)");
+// Heads wider than 256 columns: the wide route.
+//
+// Bound: bytes.  A position of one kv head moves 2*D*sizeof(pool) bytes
+// (plus two f32 scales for int8 pools) for 4*g*D flops: g flops per byte
+// over bf16 pools and 2g over int8, 16 and 32 at absorbed MLA's g = 16,
+// far below the tensor cores' ridge (989 TFLOP/s over 3.35 TB/s = 295).
+// What a block must not do is wait: on copies issued one after another,
+// or on arithmetic that runs while no copy is in flight.
+//
+// Design.  The spans, the workspace and the combine are the narrow
+// route's; a block of kWideThreads threads takes one (row, kv head, span).
+// - Staging, whole rows (bf16 and int8 pools whose K and V rows of a span
+//   fit the block beside the rest: bf16 to D ~740, int8 to ~1,340, f32 to
+//   ~400; and row bytes a multiple of 16): each valid row of the span is
+//   one bulk copy (cp.async.bulk, the TMA engine), K rows before V rows,
+//   issued by 16 lanes of every warp, completing on an mbarrier per 16
+//   rows of K and of V; rows padded to an odd number of 16-byte units
+//   (ldmatrix and vector reads at one column fall in distinct banks).  All
+//   of a span's copies are in flight at once, and the span stays resident
+//   for every pass of query heads.
+// - Staging, otherwise: 16-byte cp.async (8-byte for int8 rows of D % 16
+//   = 8) in boxes of kWideBox columns into a ring of box stages, an
+//   mbarrier per stage (cp.async.mbarrier.arrive); the ring holds
+//   kWideRing bytes, every box of a span where they fit, else a stage is
+//   refilled with the box as many stages on as soon as the block is done with
+//   it, and a second pass of heads streams the boxes again.
+// - Scores, bf16 queries (over bf16 or int8 pools), whatever g: the pass's
+//   up to 16 query rows, loaded once per pass into q16, are the A operand
+//   of mma.sync m16n8k16 (bf16 in, f32 accumulate); warp w takes
+//   positions 16 (w % 4) .. +15 and the first or second half of each box's
+//   64 columns (w / 4), over the boxes in two register chains (even and
+//   odd boxes, added at the end); the two halves are added in that order
+//   by the softmax.  int8 keys are made bf16 as the B fragments are read
+//   (exact: |k| <= 128).  Where D % 16 = 8 the last box's 8 tail columns
+//   enter as zeros.
+// - Scores, f32 queries: thread (position, head set) on the CUDA cores,
+//   over each box's columns in order.
+// - p V, bf16 pools: mma.sync with p16 (p rounded to bf16, as the
+//   reference rounds it) as A and the V rows read by ldmatrix.trans as B,
+//   warp w taking each box's 8 columns 8w .. 8w+7; value rows past the
+//   span's end are zeroed first.  On whole rows the 16-position k-steps
+//   run outermost, each as soon as its rows land, with an accumulator per
+//   box; partial numerators go out in 8-byte (16-byte on the CUDA cores)
+//   stores.  int8 and f32 pools: f32 p times the
+//   value's scale, on the CUDA cores: thread (4 columns, 4 heads) of one
+//   of four boxes at a time sums its 16 outputs over the span's positions
+//   in order.  At g 16 that loop sets the pace of int8 pools.
+// - Blocks are numbered from the last span down: spans past a row's end,
+//   mostly the last ones, exit at once and free their SMs first.
+// - The combine takes kWideCombineThreads-column slices of a head, a block
+//   each.
+// Every sum runs in one thread, or in one mma chain in a fixed order, and
+// the score chains and halves add in a fixed order: the bits are fixed,
+// and a row's result depends on its q, table row and length alone.
+//
+// Measured (tools/paged_variants.py --wide; NVIDIA H100 80GB HBM3, 700 W;
+// B 4, lengths 1 / 63 / 130 / 256 and 4096 / 3001 / 1024 / 200, page 16,
+// L2 cold), bf16 / int8 pool, ms: D 320 (8 over 2) 0.0132 / 0.0169, D 576
+// (16 over 1) 0.0177 / 0.0237, D 320 long 0.0189 / 0.0227, D 576 long
+// 0.0213 / 0.0322 (bounds 0.00632 / 0.00321 and 0.00572 / 0.00290 at the
+// long shapes); the design of the first wide kernel (element
+// loads, CUDA cores): 0.0834 / 0.0841, 0.1892 / 0.1937, 0.1548 / 0.1584,
+// 0.3249 / 0.3277.  A block moves its span at ~12-14 GB/s whatever the
+// path (bulk copies, cp.async, loads through registers; L2-warm or cold),
+// so the long shapes' 131-262 blocks set the time, with ~4 us of combine
+// after them.
+constexpr int kWideThreads = 256;
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideBox = 64;                               // columns per box
+constexpr int kWideRing = 18 * kSplit * (2 * kWideBox + 16);  // 18 bf16 boxes
+constexpr int kWideSmemMax = 232448;                       // a block's most, sm_90
+constexpr bool kWideBulk = true;                           // whole rows by bulk copies
+constexpr int kWideBarRows = 16;                           // rows a barrier holds
+constexpr int kWideBulkBoxes = 12;                         // boxes of a bf16 whole-row span, at most
+constexpr int kWideRowGroups = kSplit / kWideBarRows;      // barriers for K, and for V
+static_assert(kWideThreads == 4 * kSplit && kSplit == 4 * 16,
+              "four head sets of the span's positions; four 16-position tiles");
+static_assert(kWideThreads == 4 * 16 * 4 && kMaxGroup == 16,
+              "CUDA-core p V: (4 columns, 4 heads) of one of 4 boxes at a time");
 
+// bytes between a box's staged rows: an odd number of 16-byte units
+template <typename TKV>
+__host__ __device__ constexpr int box_stride() {
+  return kWideBox * static_cast<int>(sizeof(TKV)) + 16;
+}
+
+// bytes between q16's rows: D rounded up to 16 columns, and 16 bytes
+__host__ __device__ constexpr int wide_q_stride(int d) {
+  return (d + 15) / 16 * 16 * 2 + 16;
+}
+
+// A wide block's shared memory: the span's whole K and V rows, or the
+// ring of box stages; then q16 (bf16 queries), the score halves, p (p16
+// for bf16 pools, else f32 by position), the statistics, the scales, the
+// pool rows and the mbarriers (one per 16 rows of K and of V, or one per
+// stage).
+// bytes < 0: the head is too wide for a block.  Host and device both lay
+// it out from here.
+struct WideLayout {
+  int nb, stages;   // boxes per tensor, stages of the ring
+  bool resident;    // every box of the span has its own stage
+  bool bulk;        // whole rows by bulk copies (stages: their barriers)
+  int q16, sc, p, ml, ksc, vsc, rows, bar, bytes;
+};
+
+template <typename TQ, typename TKV>
+__host__ __device__ inline WideLayout wide_layout(int d) {
+  constexpr bool kTC = std::is_same<TQ, __nv_bfloat16>::value;
+  constexpr bool kP16 = kTC && std::is_same<TKV, __nv_bfloat16>::value;
+  constexpr int kBox = kSplit * box_stride<TKV>();
+  WideLayout l;
+  l.nb = (d + kWideBox - 1) / kWideBox;
+  const int rest = (kTC ? kMaxGroup * wide_q_stride(d) : 0) +
+                   4 * 2 * kMaxGroup * kSplit +
+                   (kP16 ? 2 * kMaxGroup * kP16Stride : 4 * kSplit * kMaxGroup) +
+                   4 * 2 * kMaxGroup + 4 * 2 * kSplit + 8 * kSplit;
+  const int row_bytes = d * static_cast<int>(sizeof(TKV));
+  const int rows_area = 2 * kSplit * smem_stride<TKV>(d);
+  l.bulk = kWideBulk && row_bytes % 16 == 0 &&
+           rows_area + 8 * kWideRowGroups + rest <= kWideSmemMax;
+  int stages = 2 * kWideRowGroups;
+  int at = rows_area;
+  l.resident = true;
+  if (!l.bulk) {
+    const int fit = (kWideSmemMax - rest) / (kBox + 8);
+    stages = kWideRing / kBox < fit ? kWideRing / kBox : fit;
+    l.resident = 2 * l.nb <= stages;
+    if (l.resident) stages = 2 * l.nb;
+    at = stages * kBox;
+  }
+  l.stages = stages;
+  l.q16 = at;
+  at += kTC ? kMaxGroup * wide_q_stride(d) : 0;
+  l.sc = at;
+  at += 4 * 2 * kMaxGroup * kSplit;
+  l.p = at;
+  at += kP16 ? 2 * kMaxGroup * kP16Stride : 4 * kSplit * kMaxGroup;
+  l.ml = at;
+  at += 4 * 2 * kMaxGroup;
+  l.ksc = at;
+  at += 4 * kSplit;
+  l.vsc = at;
+  at += 4 * kSplit;
+  l.rows = at;
+  at += 8 * kSplit;
+  l.bar = at;
+  at += 8 * stages;
+  l.bytes = stages < 2 ? -1 : at;
+  return l;
+}
+
+__device__ __forceinline__ void mbar_init(unsigned bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(bar), "r"(count)
+               : "memory");
+}
+
+// the barrier's arrival once this thread's cp.async copies so far land
+__device__ __forceinline__ void cp_async_arrive(unsigned bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" :: "r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(unsigned bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" :: "r"(bar),
+               "r"(bytes) : "memory");
+}
+
+// `bytes` (a multiple of 16, both ends 16-byte aligned) by the bulk copy
+// engine, completing on the barrier's transaction count
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];"
+      :: "r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(unsigned bar, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// two staged int8 keys as a bf16 pair (exact), the lower column low
+__device__ __forceinline__ unsigned bf16x2_of(const int8_t* p) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  __nv_bfloat162 h = __floats2bfloat162_rn(static_cast<float>(c.x),
+                                           static_cast<float>(c.y));
+  return *reinterpret_cast<unsigned*>(&h);
+}
+
+// 4 consecutive staged elements as f32
+__device__ __forceinline__ void smem4(const float* p, float* o) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+
+__device__ __forceinline__ void smem4(const int8_t* p, float* o) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  o[0] = static_cast<float>(c.x); o[1] = static_cast<float>(c.y);
+  o[2] = static_cast<float>(c.z); o[3] = static_cast<float>(c.w);
+}
+
+// put's values at columns col .. col+n-1 (n = 2 or 4, col a multiple of
+// n): the same numbers, a partial numerator's in one n-wide store
+template <typename TQ, int kG, int n>
+__device__ __forceinline__ void put_n(const Args& a, const Span& sp, int c0, int j,
+                                      int col, const float* x) {
+  if (sp.n_spans == 1) {
+#pragma unroll
+    for (int e = 0; e < n; ++e) put<TQ, kG>(a, sp, c0, j, col + e, x[e]);
+    return;
+  }
+  float* dst = a.part + ((sp.head0 + c0 + j) * a.max_splits + sp.s) * a.d + col;
+  if constexpr (n == 2) {
+    *reinterpret_cast<float2*>(dst) = make_float2(x[0], x[1]);
+  } else {
+    *reinterpret_cast<float4*>(dst) = make_float4(x[0], x[1], x[2], x[3]);
+  }
+}
+
+// The wide span kernel: a block per (row b, kv head h, span s), the spans
+// numbered from the last (s = max_splits - 1, mostly past the rows' ends:
+// such blocks exit at once, before the full ones take the SMs); g query
+// heads in passes of kMaxGroup.  Sequence index i names
+// the i-th box the block consumes: box i % (2 nb) of the span, K boxes
+// first, in stage i % stages (the box itself where the span is resident).
 template <typename TQ, typename TKV, bool kQuant>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(kWideThreads, 2)
 paged_wide_kernel(const Args a) {
+  constexpr bool kTC = std::is_same<TQ, __nv_bfloat16>::value;
+  constexpr bool kP16 = kTC && std::is_same<TKV, __nv_bfloat16>::value;
   constexpr int kG = kMaxGroup;
-  const int s = blockIdx.x % a.max_splits;
-  const int bh = blockIdx.x / a.max_splits;
+  constexpr int kStride = box_stride<TKV>();
+  constexpr int kBox = kSplit * kStride;
+  const int s = a.max_splits - 1 - static_cast<int>(blockIdx.x / (a.batch * a.hkv));
+  const int bh = blockIdx.x % (a.batch * a.hkv);
   const int h = bh % a.hkv;
   const int b = bh / a.hkv;
   const int d = a.d;
   const int g = a.hq / a.hkv;
   const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
   const int r0 = s * kSplit;
   const int* tb = a.table + static_cast<size_t>(b) * a.np;
+  // thread r's position's pool row, loaded beside the row's length
   long long prow = 0;
   if (tid < kSplit && r0 + tid < a.np * a.page) {
     prow = static_cast<long long>(pool_row(tb, r0 + tid, h, a));
@@ -870,78 +1099,416 @@ paged_wide_kernel(const Args a) {
   if (s >= n_spans) return;
   const int len = max(0, min(a.lengths[b], a.np * a.page));
 
-  __shared__ __align__(16) float x_s[kSplit * kWideStride];   // a box of K or V rows
-  __shared__ __align__(16) float q_s[kG * kWideBox];          // a box of the pass's q rows
-  __shared__ __align__(16) float sc_s[kG * kSplit];           // scores, then p
-  __shared__ float ml_s[2 * kG];
-  __shared__ float ksc_s[kSplit], vsc_s[kSplit];
-  __shared__ long long rows_s[kSplit];
+  const WideLayout lay = wide_layout<TQ, TKV>(d);
+  extern __shared__ __align__(16) unsigned char smem[];
+  char* ring = reinterpret_cast<char*>(smem);
+  __nv_bfloat16* q16 = reinterpret_cast<__nv_bfloat16*>(smem + lay.q16);
+  float* pt = reinterpret_cast<float*>(smem + lay.p);   // (kSplit, kG) f32 p
+  __nv_bfloat16* p16 = reinterpret_cast<__nv_bfloat16*>(smem + lay.p);
+  float* ksc_s = reinterpret_cast<float*>(smem + lay.ksc);
+  float* vsc_s = reinterpret_cast<float*>(smem + lay.vsc);
+  long long* rows_s = reinterpret_cast<long long*>(smem + lay.rows);
+  const unsigned bar0 = smem_addr(smem + lay.bar);
   Span sp{};
   sp.ksc = ksc_s;
   sp.vsc = vsc_s;
-  sp.sc = sc_s;
-  sp.ml = ml_s;
+  sp.sc = reinterpret_cast<float*>(smem + lay.sc);
+  sp.ml = reinterpret_cast<float*>(smem + lay.ml);
+  sp.p16 = p16;
   sp.head0 = static_cast<size_t>(b) * a.hq + static_cast<size_t>(h) * g;
   sp.s = s;
   sp.n_spans = n_spans;
-  sp.rows = max(0, min(kSplit, len - r0));
-  if (tid < sp.rows) {
-    rows_s[tid] = prow;
-    if (kQuant) {
+  sp.rows = max(0, min(kSplit, len - r0));   // 0 only when len is 0
+  const int rows = sp.rows;
+  const int nb = lay.nb;
+  const int passes = (g + kG - 1) / kG;
+  const int total = lay.resident ? 2 * nb : passes * 2 * nb;
+  if (tid < rows) rows_s[tid] = prow;
+  if (tid == 0) {
+    for (int i = 0; i < lay.stages; ++i) {
+      mbar_init(bar0 + 8 * i, lay.bulk ? 1 : kWideThreads);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int row_bytes = d * static_cast<int>(sizeof(TKV));
+  const int chunk = row_bytes % 16 == 0 ? 16 : 8;
+  // bytes between staged rows, and sequence index i's box
+  const int kst = lay.bulk ? smem_stride<TKV>(d) : kStride;
+  auto box_at = [&](int i) -> char* {
+    const int box = i % (2 * nb);
+    if (lay.bulk) {
+      return ring + (box >= nb ? kSplit * kst : 0) +
+             (box % nb) * kWideBox * static_cast<int>(sizeof(TKV));
+    }
+    return ring + (lay.resident ? box : i % lay.stages) * kBox;
+  };
+  // whole rows: barrier g (K) and kWideRowGroups + g (V) hold rows
+  // kWideBarRows g ..
+  auto rows_wait = [&](int g) { mbar_wait(bar0 + 8 * g, 0u); };
+  auto stage_of = [&](int i) { return lay.resident ? i % (2 * nb) : i % lay.stages; };
+  auto wait = [&](int i) {
+    mbar_wait(bar0 + 8 * stage_of(i), lay.resident ? 0u : (i / lay.stages) & 1u);
+  };
+  // this thread's copies of sequence index i's box, then its arrival
+  auto issue = [&](int i) {
+    const int box = i % (2 * nb);
+    const bool is_v = box >= nb;
+    const int cb = (is_v ? box - nb : box) * kWideBox;
+    const int per_row = min(kWideBox, d - cb) * static_cast<int>(sizeof(TKV)) / chunk;
+    char* dst = box_at(i);
+    const char* src = static_cast<const char*>(is_v ? a.v : a.k) +
+                      cb * static_cast<int>(sizeof(TKV));
+    for (int c = tid; c < rows * per_row; c += kWideThreads) {
+      const int r = c / per_row;
+      const int k = c - r * per_row;
+      const char* from = src + rows_s[r] * row_bytes + k * chunk;
+      if (chunk == 16) {
+        cp_async16(dst + r * kStride + k * chunk, from);
+      } else {
+        cp_async8(dst + r * kStride + k * chunk, from);
+      }
+    }
+    if (kQuant && i == 0) {
+      for (int r = tid; r < rows; r += kWideThreads) {
+        cp_async4(ksc_s + r, a.ks + rows_s[r]);
+        cp_async4(vsc_s + r, a.vs + rows_s[r]);
+      }
+    }
+    cp_async_arrive(bar0 + 8 * stage_of(i));
+  };
+  // where stages recycle: the block is done with index i; its stage takes
+  // index i + stages
+  auto refill = [&](int i) {
+    if (i + lay.stages < total) issue(i + lay.stages);
+  };
+  if (lay.bulk) {
+    // every valid row of the span, one bulk copy each, issued by lanes
+    // 0-15 of every warp: op = 16 warp + lane; the K rows (warps 0-3)
+    // before the V rows, so that the keys land first and the scores run
+    // while the values fly
+    const int op = 16 * warp + lane;
+    const int r = op % kSplit;
+    const bool is_v = op >= kSplit;
+    if (tid < 2 * kWideRowGroups) {
+      const int n = min(kWideBarRows, max(0, rows - kWideBarRows * (tid % kWideRowGroups)));
+      mbar_expect_tx(bar0 + 8 * tid, n * row_bytes);
+    }
+    if (!is_v && lane < 16 && r < rows) {
+      bulk_copy(ring + r * kst, static_cast<const char*>(a.k) + rows_s[r] * row_bytes,
+                row_bytes, bar0 + 8 * (r / kWideBarRows));
+    }
+    __syncthreads();
+    if (is_v && lane < 16 && r < rows) {
+      bulk_copy(ring + (kSplit + r) * kst, static_cast<const char*>(a.v) + rows_s[r] * row_bytes,
+                row_bytes, bar0 + 8 * (kWideRowGroups + r / kWideBarRows));
+    }
+    if (kQuant && tid < rows) {
       ksc_s[tid] = a.ks[prow];
       vsc_s[tid] = a.vs[prow];
     }
+  } else {
+    for (int i = 0; i < min(total, lay.stages); ++i) issue(i);
   }
+
   const TQ* qb = static_cast<const TQ*>(a.q) + sp.head0 * d;
-  const TKV* kp = static_cast<const TKV*>(a.k);
-  const TKV* vp = static_cast<const TKV*>(a.v);
-  const int pos = tid % kSplit;     // scores: this thread's position
-  const int col = tid % kWideBox;   // p V: this thread's column of a box
-  const int set = tid / kSplit;     // heads set, set + kHeadSets, ... of a pass
+  const int qs = wide_q_stride(d);
   for (int c0 = 0; c0 < g; c0 += kG) {
     const int gc = min(kG, g - c0);
-    __syncthreads();   // the last pass's readers of sc_s are done
-    for (int j = set; j < gc; j += kHeadSets) sc_s[j * kSplit + pos] = 0.f;
-    for (int cb = 0; cb < d; cb += kWideBox) {
-      const int w = min(kWideBox, d - cb);
-      __syncthreads();   // the last box's readers are done
-      for (int i = tid; i < kSplit * w; i += kThreads) {
-        const int rr = i / w;
-        const int c = i - rr * w;
-        x_s[rr * kWideStride + c] =
-            rr < sp.rows ? to_float(kp[rows_s[rr] * d + cb + c]) : 0.f;
-      }
-      for (int i = tid; i < gc * w; i += kThreads) {
-        const int j = i / w;
-        const int c = i - j * w;
-        q_s[j * kWideBox + c] = to_float(qb[static_cast<size_t>(c0 + j) * d + cb + c]);
+    const int base = c0 / kG * 2 * nb;   // this pass's first sequence index
+    if (c0 > 0) __syncthreads();         // the last pass's readers are done
+    if constexpr (kTC) {
+      // this pass's query rows, while the copies fly
+      for (int i = tid; i < gc * d / 8; i += kWideThreads) {
+        const int row = i / (d / 8);
+        const int c = i - row * (d / 8);
+        *reinterpret_cast<uint4*>(reinterpret_cast<char*>(q16) + row * qs + c * 16) =
+            *reinterpret_cast<const uint4*>(qb + static_cast<size_t>(c0 + row) * d + c * 8);
       }
       __syncthreads();
-      for (int j = set; j < gc; j += kHeadSets) {
-        float t = sc_s[j * kSplit + pos];
-        for (int c = 0; c < w; ++c) t += q_s[j * kWideBox + c] * x_s[pos * kWideStride + c];
-        sc_s[j * kSplit + pos] = t;
+      // scores: positions p0 .. p0+15, the box's column half `half`
+      const int p0 = 16 * (warp % 4);
+      const int half = warp / 4;
+      const char* qa = reinterpret_cast<const char*>(q16) +
+                       ((lane % 8) + 8 * ((lane / 8) % 2)) * qs + 16 * (lane / 16);
+      // two accumulator chains, even and odd boxes, added at the end
+      float c[2][4] = {}, c_odd[2][4] = {};
+      auto box_scores = [&](int kb, float (&acc)[2][4]) {
+        const int i = base + kb;
+        const int cb = kb * kWideBox;
+        const int w = min(kWideBox, d - cb);
+        const int k_lo = 32 * half;
+        if (k_lo < w) {
+          if (!lay.bulk) wait(i);
+          const char* box = box_at(i);
+          const int k_hi = min(w, k_lo + 32);
+          for (int kk = k_lo; kk < k_hi; kk += 16) {
+            unsigned fa[4], fb[4];
+            ldsm_x4(fa, qa + 2 * (cb + kk));
+            if constexpr (kQuant) {
+              const int8_t* kr = reinterpret_cast<const int8_t*>(
+                  box + (p0 + lane / 4) * kst) + kk + 2 * (lane % 4);
+              fb[0] = bf16x2_of(kr);
+              fb[1] = bf16x2_of(kr + 8);
+              fb[2] = bf16x2_of(kr + 8 * kst);
+              fb[3] = bf16x2_of(kr + 8 * kst + 8);
+            } else {
+              ldsm_x4(fb, box + (p0 + (lane % 8) + 8 * (lane / 16)) * kst +
+                              16 * ((lane / 8) % 2) + 2 * kk);
+            }
+            if (kk + 16 > w) {   // D % 16 = 8: the last 8 columns are zeros
+              fa[2] = fa[3] = 0u;
+              fb[1] = fb[3] = 0u;
+            }
+            mma_bf16(acc[0], fa, fb[0], fb[1]);
+            mma_bf16(acc[1], fa, fb[2], fb[3]);
+          }
+        }
+        if (!lay.resident) {
+          __syncthreads();
+          refill(i);
+        }
+      };
+      if (lay.bulk) {
+        for (int g = p0 / kWideBarRows; g <= (p0 + 15) / kWideBarRows; ++g) rows_wait(g);
+      }
+      for (int kb = 0; kb < nb; kb += 2) {
+        box_scores(kb, c);
+        if (kb + 1 < nb) box_scores(kb + 1, c_odd);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[n][e] += c_odd[n][e];
+      }
+      // c[n]: heads lane/4 and lane/4 + 8 at positions p0 + 8n + 2(lane%4), +1
+      const int gr = lane / 4;
+      float* sc = sp.sc + half * kG * kSplit;
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const int pos = p0 + 8 * n + 2 * (lane % 4);
+        if (gr < gc) {
+          sc[gr * kSplit + pos] = c[n][0];
+          sc[gr * kSplit + pos + 1] = c[n][1];
+        }
+        if (gr + 8 < gc) {
+          sc[(gr + 8) * kSplit + pos] = c[n][2];
+          sc[(gr + 8) * kSplit + pos + 1] = c[n][3];
+        }
+      }
+    } else {
+      // scores on the CUDA cores: thread (position r, head set hs) takes
+      // heads hs, hs + 4, ... over each box's columns in order; q from
+      // device memory (every thread of a warp reads the same row)
+      const int r = tid % kSplit;
+      const int hs = tid / kSplit;
+      float dot[kG / 4] = {};
+      if (lay.bulk) rows_wait(r / kWideBarRows);
+      for (int kb = 0; kb < nb; ++kb) {
+        const int i = base + kb;
+        const int cb = kb * kWideBox;
+        const int w = min(kWideBox, d - cb);
+        if (!lay.bulk) wait(i);
+        if (r < rows) {
+          const TKV* kr = reinterpret_cast<const TKV*>(box_at(i) + r * kst);
+          for (int cc = 0; cc < w; cc += 4) {
+            float x[4];
+            smem4(kr + cc, x);
+#pragma unroll
+            for (int m = 0; m < kG / 4; ++m) {
+              const int j = hs + 4 * m;
+              if (j < gc) {
+                const float4 qv = __ldg(reinterpret_cast<const float4*>(
+                    qb + static_cast<size_t>(c0 + j) * d + cb + cc));
+                float t = dot[m];
+                t += qv.x * x[0]; t += qv.y * x[1]; t += qv.z * x[2]; t += qv.w * x[3];
+                dot[m] = t;
+              }
+            }
+          }
+        }
+        if (!lay.resident) {
+          __syncthreads();
+          refill(i);
+        }
+      }
+#pragma unroll
+      for (int m = 0; m < kG / 4; ++m) {
+        const int j = hs + 4 * m;
+        if (j < gc && r < rows) sp.sc[j * kSplit + r] = dot[m];
       }
     }
     __syncthreads();
-    span_softmax<TKV, kQuant, kG, 1>(a, sp, gc, nullptr);
-    for (int cb = 0; cb < d; cb += kWideBox) {
-      const int w = min(kWideBox, d - cb);
-      __syncthreads();   // p is in sc_s; the last box's readers are done
-      for (int i = tid; i < kSplit * w; i += kThreads) {
-        const int rr = i / w;
-        const int c = i - rr * w;
-        x_s[rr * kWideStride + c] =
-            rr < sp.rows ? to_float(vp[rows_s[rr] * d + cb + c]) : 0.f;
+
+    // the span's softmax: one warp per query head; p to p16 (bf16 pools,
+    // rounded) or to pt by position (f32, times the value's scale)
+    for (int j = warp; j < gc; j += kWideWarps) {
+      float x[kSplit / 32];
+      float m = kNegInf;
+#pragma unroll
+      for (int i = 0; i < kSplit / 32; ++i) {
+        const int rr = lane + 32 * i;
+        float sv = kNegInf;
+        if (rr < rows) {
+          sv = sp.sc[j * kSplit + rr];
+          if (kTC) sv += sp.sc[(kG + j) * kSplit + rr];
+          if (kQuant) sv *= ksc_s[rr];
+          sv *= a.scale;
+        }
+        x[i] = sv;
+        m = fmaxf(m, sv);
       }
-      __syncthreads();
-      if (col < w) {
-        for (int j = set; j < gc; j += kHeadSets) {
-          float t = 0.f;
-          for (int rr = 0; rr < sp.rows; ++rr) {
-            t += sc_s[j * kSplit + rr] * x_s[rr * kWideStride + col];
+      m = warp_max(m);
+      float l = 0.f;
+#pragma unroll
+      for (int i = 0; i < kSplit / 32; ++i) {
+        const int rr = lane + 32 * i;
+        const float e = rr < rows ? expf(x[i] - m) : 0.f;
+        l += e;
+        if constexpr (kP16) {
+          p16[j * kP16Stride + rr] = __float2bfloat16(e);
+        } else {
+          pt[rr * kG + j] = kQuant && rr < rows ? e * vsc_s[rr] : e;
+        }
+      }
+      l = warp_sum(l);
+      if (lane == 0) {
+        sp.ml[j] = m;
+        sp.ml[kG + j] = l;
+      }
+    }
+    __syncthreads();
+
+    if constexpr (kP16) {
+      // p V on the tensor cores: p16 as A (loaded once per pass), warp w
+      // the box's columns 8w .. 8w+7 as B, over positions up to kend
+      const int kend = (rows + 15) / 16 * 16;
+      unsigned fp[kSplit / 16][4];
+      const char* pa = reinterpret_cast<const char*>(p16) +
+                       ((lane % 8) + 8 * ((lane / 8) % 2)) * kP16Stride * 2 + 16 * (lane / 16);
+#pragma unroll
+      for (int ks = 0; ks < kSplit / 16; ++ks) {
+        if (16 * ks < kend) ldsm_x4(fp[ks], pa + 32 * ks);
+      }
+      if (lay.bulk && nb <= kWideBulkBoxes) {
+        // whole rows: k-step (16 positions, one barrier's rows) outer, so
+        // that each group of value rows is used as it lands; an
+        // accumulator per box, the boxes' sums each in k-step order
+        float acc[kWideBulkBoxes][4] = {};
+        const char* vb = ring + kSplit * kst +
+                         ((lane % 8) + 8 * ((lane / 8) % 2)) * kst + 16 * warp;
+#pragma unroll
+        for (int ks = 0; ks < kSplit / 16; ++ks) {
+          if (16 * ks < kend) {
+            rows_wait(kWideRowGroups + ks * 16 / kWideBarRows);
+            if (16 * ks + 16 > rows) {
+              // this warp's 16 bytes of every box's value rows past the
+              // span's end, to kend: p is 0 there, but 0 * stale bytes
+              // need not be 0
+              for (int v = 0; v < nb; ++v) {
+                if (lane < kend - rows && 8 * warp < d - v * kWideBox) {
+                  *reinterpret_cast<uint4*>(ring + (kSplit + rows + lane) * kst +
+                                            2 * v * kWideBox + 16 * warp) =
+                      make_uint4(0, 0, 0, 0);
+                }
+              }
+              __syncwarp();
+            }
+#pragma unroll
+            for (int v = 0; v < kWideBulkBoxes; ++v) {
+              if (v < nb && 8 * warp < d - v * kWideBox) {
+                unsigned fb[2];
+                ldsm_x2_trans(fb, vb + 16 * ks * kst + 2 * v * kWideBox);
+                mma_bf16(acc[v], fp[ks], fb[0], fb[1]);
+              }
+            }
           }
-          put<TQ, kG>(a, sp, c0, j, cb + col, t);
+        }
+        const int gr = lane / 4;
+#pragma unroll
+        for (int v = 0; v < kWideBulkBoxes; ++v) {
+          const int col = v * kWideBox + 8 * warp + 2 * (lane % 4);
+          if (v < nb && 8 * warp < d - v * kWideBox) {
+            if (gr < gc) put_n<TQ, kG, 2>(a, sp, c0, gr, col, acc[v]);
+            if (gr + 8 < gc) put_n<TQ, kG, 2>(a, sp, c0, gr + 8, col, acc[v] + 2);
+          }
+        }
+      } else {
+        if (lay.bulk) {
+          for (int g = 0; g < kWideRowGroups; ++g) rows_wait(kWideRowGroups + g);
+        }
+        for (int v = 0; v < nb; ++v) {
+          const int i = base + nb + v;
+          const int cb = v * kWideBox;
+          if (8 * warp < d - cb) {
+            if (!lay.bulk) wait(i);
+            char* box = box_at(i);
+            // this warp's 16 bytes of the value rows past the span's end, to
+            // kend: p is 0 there, but 0 * stale bytes need not be 0
+            if (lane < kend - rows) {
+              *reinterpret_cast<uint4*>(box + (rows + lane) * kst + 16 * warp) =
+                  make_uint4(0, 0, 0, 0);
+            }
+            __syncwarp();
+            const char* vb = box + ((lane % 8) + 8 * ((lane / 8) % 2)) * kst + 16 * warp;
+            float acc[4] = {};
+#pragma unroll
+            for (int ks = 0; ks < kSplit / 16; ++ks) {
+              if (16 * ks < kend) {
+                unsigned fb[2];
+                ldsm_x2_trans(fb, vb + 16 * ks * kst);
+                mma_bf16(acc, fp[ks], fb[0], fb[1]);
+              }
+            }
+            // acc: heads lane/4 and lane/4 + 8 at columns col, col + 1
+            const int gr = lane / 4;
+            const int col = cb + 8 * warp + 2 * (lane % 4);
+            if (gr < gc) put_n<TQ, kG, 2>(a, sp, c0, gr, col, acc);
+            if (gr + 8 < gc) put_n<TQ, kG, 2>(a, sp, c0, gr + 8, col, acc + 2);
+          }
+          if (!lay.resident) {
+            __syncthreads();
+            refill(i);
+          }
+        }
+      }
+    } else {
+      // p V on the CUDA cores, 4 boxes at a time: thread (4 columns cq, 4
+      // heads hq) of box v0 + grp sums over the positions in order
+      const int cq = tid % 16;
+      const int hq = (tid / 16) % 4;
+      const int grp = tid / 64;
+      if (lay.bulk) {
+        for (int g = 0; g < kWideRowGroups; ++g) rows_wait(kWideRowGroups + g);
+      }
+      for (int v0 = 0; v0 < nb; v0 += 4) {
+        const int v = v0 + grp;
+        const int cb = v * kWideBox;
+        if (v < nb && 4 * hq < gc && 4 * cq < d - cb) {
+          const int i = base + nb + v;
+          if (!lay.bulk) wait(i);
+          const TKV* vc = reinterpret_cast<const TKV*>(box_at(i)) + 4 * cq;
+          float acc[4][4] = {};
+          for (int r = 0; r < rows; ++r) {
+            float x[4];
+            smem4(vc + r * (kst / static_cast<int>(sizeof(TKV))), x);
+            const float4 p = *reinterpret_cast<const float4*>(pt + r * kG + 4 * hq);
+            const float pr[4] = {p.x, p.y, p.z, p.w};
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+#pragma unroll
+              for (int e = 0; e < 4; ++e) acc[m][e] += pr[m] * x[e];
+            }
+          }
+#pragma unroll
+          for (int m = 0; m < 4; ++m) {
+            if (4 * hq + m < gc) put_n<TQ, kG, 4>(a, sp, c0, 4 * hq + m, cb + 4 * cq, acc[m]);
+          }
+        }
+        if (!lay.resident) {
+          __syncthreads();
+          for (int u = v0; u < min(nb, v0 + 4); ++u) refill(base + nb + u);
         }
       }
     }
@@ -953,14 +1520,32 @@ paged_wide_kernel(const Args a) {
   }
 }
 
-// the combine, a second launch: one block per (row, query head)
-template <typename TQ>
-__global__ void __launch_bounds__(kCombineThreads)
+// the wide route's combine: one block of kWideCombineThreads threads per
+// (row, query head, slice of as many columns), so that a head's loads are
+// spread over more blocks
+constexpr int kWideCombineThreads = 128;
+__host__ __device__ constexpr int combine_slices(int d) {
+  return (d + kWideCombineThreads - 1) / kWideCombineThreads;
+}
+
+// the combine, a second launch: one block per (row, query head), and on
+// the wide route per slice of kWideCombineThreads columns; every column's
+// sums run as in one block
+template <typename TQ, bool kWide = false>
+__global__ void __launch_bounds__(kWide ? kWideCombineThreads : kCombineThreads)
 paged_combine_kernel(const Args a) {
   __shared__ float ws[2 * kChunk];
-  // a row of one span wrote its output itself; the block finds out with
-  // the loads of the combine already in flight and stores nothing
-  combine_head<TQ>(a, blockIdx.x, blockIdx.x / a.hq, ws);
+  if constexpr (kWide) {
+    const int slices = combine_slices(a.d);
+    const size_t head = blockIdx.x / slices;
+    const int c_lo = static_cast<int>(blockIdx.x % slices) * kWideCombineThreads;
+    combine_head<TQ, kWideCombineThreads>(a, head, static_cast<int>(head / a.hq), ws,
+                                          c_lo, min(a.d, c_lo + kWideCombineThreads));
+  } else {
+    // a row of one span wrote its output itself; the block finds out with
+    // the loads of the combine already in flight and stores nothing
+    combine_head<TQ>(a, blockIdx.x, blockIdx.x / a.hq, ws, 0, a.d);
+  }
 }
 
 template <typename TQ, typename TKV, bool kQuant, int kMaxG>
@@ -980,14 +1565,22 @@ int launch_split(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// heads wider than 256 columns: the boxed span kernel, then the combine
+// heads wider than 256 columns: the wide span kernel, then the combine
 template <typename TQ, typename TKV, bool kQuant>
 int launch_wide(const Args& a, cudaStream_t stream) {
-  paged_wide_kernel<TQ, TKV, kQuant><<<a.batch * a.hkv * a.max_splits, kThreads, 0,
-                                       stream>>>(a);
+  const WideLayout lay = wide_layout<TQ, TKV>(a.d);
+  if (lay.bytes < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = paged_wide_kernel<TQ, TKV, kQuant>;
+  if (lay.bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, lay.bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<a.batch * a.hkv * a.max_splits, kWideThreads, lay.bytes, stream>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || a.max_splits == 1) return static_cast<int>(err);
-  paged_combine_kernel<TQ><<<a.batch * a.hq, kCombineThreads, 0, stream>>>(a);
+  paged_combine_kernel<TQ, true><<<a.batch * a.hq * combine_slices(a.d),
+                                   kWideCombineThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1002,7 +1595,7 @@ int launch(Args a, void* workspace, int b, void* stream) {
   const long long span = static_cast<long long>(a.np) * a.page;
   if (a.max_splits != (span + kSplit - 1) / kSplit ||
       static_cast<long long>(b) * a.hkv * a.max_splits > INT_MAX ||
-      static_cast<long long>(b) * a.hq > INT_MAX ||
+      static_cast<long long>(b) * a.hq * combine_slices(a.d) > INT_MAX ||
       (a.max_splits > 1 && workspace == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -27,9 +27,19 @@ and both pools, and the output sliced back, the softmax scale the true
 width's: zero columns add nothing to q.k and give zero output columns.
 The pad copies the pools on every call; no configuration has such a
 width (:func:`repro_torch.kernels.flash_attention.padded_dims`, the
-flash wrappers' rounding).  Past 256 columns the source streams each span's rows through
-shared memory in 64-column boxes (``paged_wide_kernel``), with the same
-spans and combine.
+flash wrappers' rounding).
+
+Past 256 columns (after that padding) a call takes the wide route
+(:func:`route`): ``paged_wide_kernel``, with the same spans, workspace
+and combine.  It stages each span's whole K and V rows in shared memory
+in the pool's dtype by bulk copies, all in flight at once (bf16 heads to
+~740 columns, int8 to ~1,340, float32 to ~400; wider heads, and int8 rows
+of a width that is not a multiple of 16, through a ``cp.async`` ring of
+64-column boxes), and runs the scores of bf16 queries, and p V over bf16
+pools, on the tensor cores (``mma.sync``) for any number of query heads
+per kv head; float32 queries, and p V over int8 pools, stay on the CUDA
+cores.  Each wrapper counts its launches by route in ``.by_route``
+beside ``.launches``.
 """
 
 from __future__ import annotations
@@ -44,9 +54,20 @@ from repro_torch.kernels.ref import quantize_pages
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
-__all__ = ["SplitPlan", "paged_attention", "paged_attention_multitok",
+__all__ = ["ROUTES", "SplitPlan", "paged_attention", "paged_attention_multitok",
            "paged_attention_quant", "paged_attention_quant_multitok",
-           "quantize_pages", "split_plan", "split_tokens"]
+           "quantize_pages", "route", "split_plan", "split_tokens"]
+
+# the CUDA source's routes: paged_split_kernel up to WIDE_ABOVE columns,
+# paged_wide_kernel past them (``launch`` in csrc/paged_attention.cu)
+ROUTES = ("narrow", "wide")
+WIDE_ABOVE = 256
+
+
+def route(d: int) -> str:
+    """The route a call of head width ``d`` takes, by the width the kernel
+    sees: ``d`` padded to a multiple of 8, as the wrappers pad it."""
+    return "wide" if padded_dims(d, d)[0] > WIDE_ABOVE else "narrow"
 
 
 def _check(q: torch.Tensor, pages: torch.Tensor, table: torch.Tensor,
@@ -178,10 +199,12 @@ def paged_attention(
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention")
     paged_attention.launches += 1
+    paged_attention.by_route[route(d)] += 1
     return out if kd == d else out[..., :d].contiguous()
 
 
 paged_attention.launches = 0
+paged_attention.by_route = dict.fromkeys(ROUTES, 0)
 
 
 def paged_attention_quant(
@@ -223,10 +246,12 @@ def paged_attention_quant(
         plan.max_splits, scale, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "paged_attention_quant")
     paged_attention_quant.launches += 1
+    paged_attention_quant.by_route[route(d)] += 1
     return out if kd == d else out[..., :d].contiguous()
 
 
 paged_attention_quant.launches = 0
+paged_attention_quant.by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _fold(q: torch.Tensor, page_table: torch.Tensor, positions: torch.Tensor):

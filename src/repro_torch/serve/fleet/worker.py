@@ -300,8 +300,9 @@ def _reset_kernel_counts() -> None:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import layers
 
-    pa.paged_attention.launches = 0
-    pa.paged_attention_quant.launches = 0
+    for fn in (pa.paged_attention, pa.paged_attention_quant):
+        fn.launches = 0
+        fn.by_route = dict.fromkeys(fn.by_route, 0)
     layers.plain_calls["decode_attention"] = 0
 
 

@@ -18,6 +18,7 @@ Tolerances:
 
 import ctypes
 import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -504,6 +505,11 @@ WIDE_PAGED = [
     pytest.param((2, 4, 2, 100, 8, 4), id="d100"),
     pytest.param((2, 4, 2, 320, 8, 4), id="d320"),
     pytest.param((2, 8, 1, 576, 8, 3), id="d576"),
+    # paths of the wide kernel alone: a last box of 8 columns (D % 16 = 8),
+    # a full tile of 16 query heads over 1, and two passes of 16
+    pytest.param((2, 4, 2, 264, 8, 4), id="d264-tail-box"),
+    pytest.param((2, 16, 1, 576, 8, 3), id="d576-g16"),
+    pytest.param((2, 32, 1, 320, 8, 4), id="d320-g32-two-passes"),
 ]
 
 
@@ -532,6 +538,21 @@ def test_paged_plain_at_every_width_matches_jnp(case):
         *(tpa._pad(t(x), kd) for x in (q, k, v)),
         t(np.clip(table, 0, None)), t(lengths), d ** -0.5)
     torch.testing.assert_close(padded[..., :d], got, atol=1e-6, rtol=1e-6)
+
+
+def test_paged_route_rule_and_counts_by_route():
+    """The paged wrappers' route by the padded width: "narrow" up to 256
+    columns, "wide" past them (D 250 pads to 256, D 257 to 264), the rule
+    the CUDA source's ``launch`` applies; each wrapper counts its launches
+    by route in ``.by_route``, one key per route."""
+    assert [tpa.route(d) for d in (8, 96, 250, 256, 257, 264, 576)] == [
+        "narrow"] * 4 + ["wide"] * 3
+    assert tpa.ROUTES == ("narrow", "wide")
+    for fn in (tpa.paged_attention, tpa.paged_attention_quant):
+        assert set(fn.by_route) == set(tpa.ROUTES)
+        assert all(isinstance(n, int) for n in fn.by_route.values())
+    src = (Path(tpa.__file__).parent / "csrc" / "paged_attention.cu").read_text()
+    assert f"if (a.d > {tpa.WIDE_ABOVE}) return launch_wide" in src
 
 
 def test_paged_wide_call_reaches_the_cuda_only_refusal():
