@@ -259,7 +259,23 @@ check:
    0, the fabric hops' bytes and seconds printed; (e) ``python -m
    repro_torch.launch.train --arch phi3-mini-3.8b --steps 6 --fail-at 3
    --ckpt-every 2`` on the card: one failure and one recovery, the last
-   loss equal to the same command's without ``--fail-at``.
+   loss equal to the same command's without ``--fail-at``;
+20. (a) contiguous caches at phi3-mini-3.8b's serving width (B 4, its 32
+   heads over 32 kv heads of 96, page 16; S 2,048 and 2,041, lengths 1 to
+   S) laid out as pools by ``paginate_cache`` (no host synchronisation,
+   identity tables on the card, zero padding) and put through both paged
+   kernels, float32 and bfloat16: each against its plain version over the
+   same pools (phase 1's tolerances) and against contiguous decode
+   attention on the unpaged cache (the int8 kernel on the dequantized
+   cache at those tolerances, and on the original at 0.05); launches
+   gated by route (all narrow); kernel, plain, contiguous and
+   ``paginate_cache`` times (CUDA events, L2 warm) beside the bound; (b)
+   the dry run (``repro_torch.launch.dryrun.main``) of phi3-mini-3.8b's
+   and deepseek-moe-16b's train cells, plain and with ``--set
+   fused_gate_up=1 --set capacity_factor=2.0``: ``model_flops`` equal to
+   6·N·T·B, the variant in the record and the config, the parameter
+   leaves and bytes those of the layout built (MoE's gate and up in one
+   ``w_in`` leaf), and an unknown key refused by name.
 
 Phase 10 also runs the repair cases: the scans' gradient through the
 final state (a loss on y and on the final state) at 64-wide shapes, WKV6
@@ -343,9 +359,10 @@ from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
 from repro_torch.kernels import xor_parity as xp  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.memory.stack import TierStack  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
-from repro_torch.configs.shapes import ShapeSpec  # noqa: E402
+from repro_torch.configs.shapes import ShapeSpec, get_shape  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
 from repro_torch.core.tasks import TaskError, TaskRuntime, _snapshot  # noqa: E402
@@ -5309,6 +5326,254 @@ def phase19() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 20: paginate_cache through the paged kernels; the dry run's model
+# FLOPs and variants
+# ---------------------------------------------------------------------- #
+
+# (a) phi3-mini-3.8b's serving width (its heads over its kv heads of its
+# head dim, page 16), B 4: a cache of 2,048 positions (whole pages: the
+# pools are views of it) and one of 2,041 (padded by 7 zero rows), each
+# stream's length from 1 to S; (b) the dry run of two train cells with and
+# without the variant
+P20 = dict(arch="phi3-mini-3.8b", page=16,
+           caches=((2048, (2048, 1, 1037, 16)), (2041, (2041, 17, 1, 640))),
+           dtypes=(torch.float32, torch.bfloat16),
+           cells=(("phi3-mini-3.8b", "train_4k"), (MOE_ARCH, "train_4k")),
+           variant=("fused_gate_up=1", "capacity_factor=2.0"))
+FLOPS_PER_PARAM = {"train": 6.0, "prefill": 2.0, "decode": 2.0}
+
+
+def paginated(kc, vc, page) -> tuple:
+    """``pa.paginate_cache`` with every host synchronisation an error (a
+    host-made table would need a copy to the card), and its layout
+    checked: slot b*nP + j holds stream b's page j, zeros past S."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kp, vp, table = pa.paginate_cache(kc, vc, page)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    b, s = kc.shape[:2]
+    n_p = -(-s // page)
+    ident = torch.arange(b * n_p, dtype=torch.int32, device=kc.device)
+    if table.dtype != torch.int32 or not torch.equal(table, ident.reshape(b, n_p)):
+        raise AssertionError(f"paginate_cache: table {table.dtype} "
+                             f"{tuple(table.shape)} is not the identity")
+    for pool, cache in ((kp, kc), (vp, vc)):
+        flat = pool.reshape((b, n_p * page) + tuple(cache.shape[2:]))
+        if (pool.device != kc.device or not torch.equal(flat[:, :s], cache)
+                or flat[:, s:].any()):
+            raise AssertionError("paginate_cache: the pool is not the cache "
+                                 "page by page with zero padding")
+    return kp, vp, table
+
+
+def phase20_roundtrip() -> dict:
+    """(a) Contiguous caches through ``paginate_cache`` and both paged
+    kernels, against their plain versions over the same pools and
+    contiguous decode attention on the unpaged cache; the wrappers'
+    launches counted by route; times (CUDA events, L2 warm)."""
+    cfg = get_config(P20["arch"])
+    hq, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    page = P20["page"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    errs = {"paged_attention": 0.0, "paged_attention_quant": 0.0}
+    calls, timed = 0, {}
+    reset_launches()
+    for s, lens in P20["caches"]:
+        b = len(lens)
+        q0 = torch.randn(b, hq, d, generator=gen, device=DEVICE)
+        kc0 = torch.randn(b, s, hkv, d, generator=gen, device=DEVICE)
+        vc0 = torch.randn(b, s, hkv, d, generator=gen, device=DEVICE)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+        for dtype in P20["dtypes"]:
+            q, kc, vc = (t.to(dtype) for t in (q0, kc0, vc0))
+            tag = f"S {s} {str(dtype)[6:]}"
+            tol = F32_TOL if dtype == torch.float32 else BF16_TOL
+            kp, vp, table = paginated(kc, vc, page)
+            say(f"  {tag}: pools {tuple(kp.shape)}, table {tuple(table.shape)}"
+                f" on {table.device}, views of the cache: "
+                f"{kp.data_ptr() == kc.data_ptr()}")
+            got = pa.paged_attention(q, kp, vp, table, lengths)
+            want = ref.paged_attention(q, kp, vp, table, lengths)
+            errs["paged_attention"] = max(errs["paged_attention"], check_close(
+                f"paged_attention {tag} vs its plain version over the pool",
+                got, want, **tol))
+            check_close(f"paged_attention {tag} vs contiguous decode attention",
+                        got, ref.decode_attention_ref(q, kc, vc, lengths), **tol)
+            kq, ks = pa.quantize_pages(kp)
+            vq, vs = pa.quantize_pages(vp)
+            got8 = pa.paged_attention_quant(q, kq, ks, vq, vs, table, lengths)
+            want8 = ref.paged_attention_quant(q, kq, ks, vq, vs, table, lengths)
+            errs["paged_attention_quant"] = max(
+                errs["paged_attention_quant"], check_close(
+                    f"paged_attention_quant {tag} vs its plain version over "
+                    "the pool", got8, want8, **tol))
+            # the dequantized pools laid back out as contiguous caches
+            unpaged = [(qp.float() * sc[..., None]).reshape(
+                (b, -1, hkv, d))[:, :s] for qp, sc in ((kq, ks), (vq, vs))]
+            check_close(f"paged_attention_quant {tag} vs contiguous decode "
+                        "attention on the dequantized cache", got8,
+                        ref.decode_attention_ref(q, *unpaged, lengths), **tol)
+            check_close(f"paged_attention_quant {tag} vs contiguous decode "
+                        "attention on the original cache", got8,
+                        ref.decode_attention_ref(q, kc, vc, lengths),
+                        atol=QUANT_VS_F32, rtol=QUANT_VS_F32)
+            if dtype == torch.bfloat16:
+                split = pa.split_tokens()
+                check_split(f"paged_attention {tag} vs its algorithm in f32",
+                            got, ref.paged_attention_split(
+                                q, kp, vp, table, lengths, split), b)
+                check_split(f"paged_attention_quant {tag} vs its algorithm "
+                            "in f32", got8, ref.paged_attention_quant_split(
+                                q, kq, ks, vq, vs, table, lengths, split), b)
+                timed[s] = (q, kc, vc, kp, vp, kq, ks, vq, vs, table, lengths)
+            calls += 1
+            del kp, vp, kq, vq, got, want, got8, want8, unpaged
+    launches = {}
+    for name in ("paged_attention", "paged_attention_quant"):
+        fn = getattr(pa, name)
+        launches[name] = fn.launches
+        say(f"  {name}: {fn.launches} launches, by route {fn.by_route}")
+        if fn.launches != calls or fn.by_route != {"narrow": calls, "wide": 0}:
+            raise AssertionError(f"{name}: {fn.launches} launches by route "
+                                 f"{fn.by_route}; want {calls}, all narrow")
+
+    times = {}
+    for s, (q, kc, vc, kp, vp, kq, ks, vq, vs, table, lengths) in timed.items():
+        lens = lengths.tolist()
+        rec = {"lengths": lens,
+               "paginate_cache_ms": time_ms(lambda: pa.paginate_cache(kc, vc, page)),
+               "contiguous_plain_ms": time_ms(
+                   lambda: ref.decode_attention_ref(q, kc, vc, lengths))}
+        for name, kern, plain, quant in (
+                ("paged_attention",
+                 lambda: pa.paged_attention(q, kp, vp, table, lengths),
+                 lambda: ref.paged_attention(q, kp, vp, table, lengths), False),
+                ("paged_attention_quant",
+                 lambda: pa.paged_attention_quant(q, kq, ks, vq, vs, table,
+                                                  lengths),
+                 lambda: ref.paged_attention_quant(q, kq, ks, vq, vs, table,
+                                                   lengths), True)):
+            bound, by = kernel_bound_ms(q, kq if quant else kp, table, lengths,
+                                        quant=quant)
+            rec[name] = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                         "bound_ms": bound, "bound_by": by}
+        say(f"  S {s} bf16 {lens}: {json.dumps(rec)}")
+        times[f"S_{s}"] = rec
+    release()
+    return {"launches": launches, "calls": calls, "max_abs_err": errs,
+            "shape": f"B 4, {hq} heads over {hkv} of {d}, page {page}, bf16, "
+                     "L2 warm (the same pools each call)",
+            "times": times}
+
+
+def meta_layout(cfg) -> dict:
+    """Leaf paths and bytes of the parameters ``cfg`` builds on the meta
+    device, at the production mesh's ``model`` size."""
+    mesh = dryrun.make_production_mesh()
+    cfg = cfg.with_tp(mesh.axis_size("model"))
+    model = get_model(cfg)
+    paths = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}{k}.")
+            else:
+                paths[prefix + k] = v
+
+    walk(model.param_shapes(cfg), "")
+    return {"paths": sorted(paths), "bytes": sum(
+        t.numel() * t.element_size() for t in paths.values())}
+
+
+def phase20_dryrun() -> dict:
+    """(b) ``python -m repro_torch.launch.dryrun`` (its ``main``) for each
+    cell, plain and with ``--set`` of the variant: the records' model FLOPs
+    against the closed form, the variant in the config and in the built
+    layout, the parameter bytes of that layout; an unknown key refused."""
+    sets = [a for kv in P20["variant"] for a in ("--set", kv)]
+    variant = dryrun.parse_set(list(P20["variant"]))
+    out = {}
+    for arch, shape_name in P20["cells"]:
+        shape = get_shape(shape_name)
+        recs, layouts = {}, {}
+        for tag, extra, var in (("plain", [], {}), ("variant", sets, variant)):
+            rec, = dryrun.main(["--arch", arch, "--shape", shape_name, *extra])
+            cfg = dryrun.apply_variant(get_config(arch), var)
+            tokens = shape.global_batch * (
+                1 if shape.kind == "decode" else shape.seq_len)
+            flops = (FLOPS_PER_PARAM[shape.kind]
+                     * cfg.param_count(active_only=True) * tokens)
+            layout = meta_layout(cfg)
+            if rec["variant"] != var or rec["model_flops"] != flops:
+                raise AssertionError(
+                    f"dry run {arch} {tag}: variant {rec['variant']}, model "
+                    f"flops {rec['model_flops']!r}; want {var}, {flops!r}")
+            if (rec["param_bytes_total"] != layout["bytes"]
+                    or rec["param_leaves"] != len(layout["paths"])):
+                raise AssertionError(
+                    f"dry run {arch} {tag}: {rec['param_leaves']} leaves, "
+                    f"{rec['param_bytes_total']} B; the built layout has "
+                    f"{len(layout['paths'])}, {layout['bytes']} B")
+            for key, value in var.items():
+                if key != "capacity_factor":
+                    got = getattr(cfg, key)
+                elif cfg.moe is not None:
+                    got = cfg.moe.capacity_factor
+                else:
+                    continue          # the reference ignores it without MoE
+                if got != value:
+                    raise AssertionError(f"dry run {arch}: {key} is {got}, "
+                                         f"not the variant's {value}")
+            recs[tag], layouts[tag] = rec, layout
+        fused = [p for p in layouts["variant"]["paths"] if p.endswith(".w_in")]
+        unfused = [p for p in layouts["plain"]["paths"]
+                   if p.startswith("moe_layers.moe.w")]
+        moe = get_config(arch).moe is not None
+        want_leaves = recs["plain"]["param_leaves"] - (1 if moe else 0)
+        if (recs["variant"]["param_leaves"] != want_leaves
+                or len(fused) != (1 if moe else 0)
+                or (moe and unfused != ["moe_layers.moe.wd", "moe_layers.moe.wg",
+                                        "moe_layers.moe.wu"])
+                or recs["variant"]["param_bytes_total"]
+                != recs["plain"]["param_bytes_total"]):
+            raise AssertionError(
+                f"dry run {arch}: fused_gate_up's layout {fused}, "
+                f"{recs['variant']['param_leaves']} leaves against "
+                f"{recs['plain']['param_leaves']}; MoE {moe}")
+        say(f"  {arch} {shape_name}: model_flops {recs['plain']['model_flops']!r}"
+            f" ({FLOPS_PER_PARAM[shape.kind]} x "
+            f"{get_config(arch).param_count(active_only=True)} active params "
+            f"x B {shape.global_batch} x T {shape.seq_len}); variant "
+            f"{variant}: leaves {recs['plain']['param_leaves']} -> "
+            f"{recs['variant']['param_leaves']} ({fused or 'no MoE'}), "
+            f"{recs['variant']['param_bytes_total']} B of parameters, "
+            f"{recs['variant']['param_bytes_per_device']} B a device")
+        out[arch] = recs
+    try:
+        dryrun.main(["--arch", P20["arch"], "--shape", "train_4k",
+                     "--set", "no_such_flag=1"])
+    except TypeError as e:
+        if "no_such_flag" not in str(e):
+            raise
+        say(f"  an unknown key is refused by name: {e}")
+    else:
+        raise AssertionError("dry run: --set no_such_flag=1 was not refused")
+    return out
+
+
+def phase20() -> dict:
+    say("== phase 20: paginate_cache through the paged kernels at phi3's "
+        "serving width; the dry run's model FLOPs and variants")
+    t0 = time.perf_counter()
+    out = {"roundtrip": phase20_roundtrip(), "dryrun": phase20_dryrun()}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"  phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -5524,6 +5789,16 @@ def main() -> int:
     kernels["flash_attention_fwd"]["phase19"] = {
         part: {k: v for k, v in p19[part].items() if k != "ranks"}
         for part in ("a", "b")}
+
+    roundtrip = phase20()["roundtrip"]
+    for name in ("paged_attention", "paged_attention_quant"):
+        kernels[name]["launches_phase20"] = roundtrip["launches"][name]
+        kernels[name]["phase20_roundtrip"] = {
+            "shape": roundtrip["shape"],
+            "max_abs_err": roundtrip["max_abs_err"][name],
+            **{key: {"lengths": r["lengths"],
+                     "paginate_cache_ms": r["paginate_cache_ms"], **r[name]}
+               for key, r in roundtrip["times"].items()}}
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

@@ -40,11 +40,15 @@ pools, on the tensor cores (``mma.sync``) for any number of query heads
 per kv head; float32 queries, and p V over int8 pools, stay on the CUDA
 cores.  Each wrapper counts its launches by route in ``.by_route``
 beside ``.launches``.
+
+:func:`paginate_cache` lays a contiguous (B, S, Hkv, D) cache out as a
+pool with identity tables, the layout fig11 holds against the contiguous
+path before any page is shared.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,7 +60,8 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 __all__ = ["ROUTES", "SplitPlan", "paged_attention", "paged_attention_multitok",
            "paged_attention_quant", "paged_attention_quant_multitok",
-           "quantize_pages", "route", "split_plan", "split_tokens"]
+           "paginate_cache", "quantize_pages", "route", "split_plan",
+           "split_tokens"]
 
 # the CUDA source's routes: paged_split_kernel up to WIDE_ABOVE columns,
 # paged_wide_kernel past them (``launch`` in csrc/paged_attention.cu)
@@ -293,3 +298,32 @@ def paged_attention_quant_multitok(
     out = paged_attention_quant(rows, k_pages, k_scales, v_pages, v_scales,
                                 tables, lengths, scale)
     return out.reshape(q.shape)
+
+
+def paginate_cache(
+    k_cache: torch.Tensor,    # (B, S, Hkv, D) contiguous per-stream cache
+    v_cache: torch.Tensor,    # (B, S, Hkv, Dv)
+    page: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Lay a contiguous batched cache out as a page pool and identity
+    tables: stream b's logical page j sits in pool slot b*nP + j, the
+    padding to a whole page is zeros, and the int32 table lies on the
+    cache's device (nothing is made on the host).  A round trip through
+    :func:`paged_attention` matches decode attention on the contiguous
+    cache.  Where S is a whole number of pages and the cache is
+    contiguous, the pools are views of the cache, not copies."""
+    b, s, hkv, d = k_cache.shape
+    dv = v_cache.shape[-1]
+    if tuple(v_cache.shape[:3]) != (b, s, hkv):
+        raise ValueError(f"v_cache {tuple(v_cache.shape)} does not match "
+                         f"k_cache {tuple(k_cache.shape)}")
+    n_p = -(-s // page)
+    pad = n_p * page - s
+    if pad:
+        k_cache = torch.nn.functional.pad(k_cache, (0, 0, 0, 0, 0, pad))
+        v_cache = torch.nn.functional.pad(v_cache, (0, 0, 0, 0, 0, pad))
+    k_pages = k_cache.reshape(b * n_p, page, hkv, d).contiguous()
+    v_pages = v_cache.reshape(b * n_p, page, hkv, dv).contiguous()
+    table = torch.arange(b * n_p, dtype=torch.int32,
+                         device=k_cache.device).reshape(b, n_p)
+    return k_pages, v_pages, table

@@ -11,6 +11,16 @@ sequence-sharded; the cache's non-divisible dims replicated, as
 ``shardings_for_shapes`` prunes them) over the mesh at ``tp`` = its
 ``model`` size, and reports each group's bytes on one device.
 
+Each record also carries the cell's ``model_flops`` (6·N·T·B to train,
+2·N·T·B to prefill, 2·N·B to decode, N the active parameter count: what
+an MFU divides by) and its ``variant``: the performance flags applied to
+the config before anything is built (:func:`apply_variant`; ``--set
+key=value``, repeatable: ``precast_params``, ``seq_parallel``,
+``fused_gate_up`` as 0 or 1, MoE's ``capacity_factor`` as a float).
+``fused_gate_up`` stacks MoE's gate and up weights into one ``w_in``
+leaf, so the parameter bytes and ``param_leaves`` are those of the
+layout the variant builds.
+
 Out of scope, with no PyTorch counterpart: the reference's
 ``memory_analysis`` (XLA's buffer assignment, activations included),
 ``cost_analysis`` (HLO FLOPs and bytes) and the parsing of collectives
@@ -19,19 +29,23 @@ from SPMD-partitioned HLO.
 Usage:
   python -m repro_torch.launch.dryrun --arch phi3-mini-3.8b --shape train_4k
   python -m repro_torch.launch.dryrun --all [--multi-pod] [--out FILE]
+  python -m repro_torch.launch.dryrun --arch deepseek-moe-16b \
+      --shape train_4k --set fused_gate_up=1 --set capacity_factor=2.0
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs import REGISTRY, get_config
-from repro_torch.configs.shapes import get_shape, shapes_for
+from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.shapes import ShapeSpec, get_shape, shapes_for
 from repro_torch.distributed.sharding import (DECODE_RULES, TRAIN_RULES,
                                               shardings_for,
                                               shardings_for_shapes)
@@ -68,19 +82,61 @@ def tree_bytes(shapes: Any, placements: Any, mesh) -> int:
                for t, p in zip(_leaves(shapes), _leaves(placements)))
 
 
-def meta_cell(arch: str, shape_name: str, mesh) -> Dict[str, Any]:
-    """One cell's per-device bytes: params, optimizer state, cache."""
+def model_flops(cfg: ArchConfig, shape: ShapeSpec) -> float:
+    """The cell's useful FLOPs: 6·N·T·B to train, 2·N·T·B to prefill,
+    2·N·B for one decode step, N = the active parameter count."""
+    n = cfg.param_count(active_only=True)
+    if shape.kind == "train":
+        return 6.0 * n * shape.seq_len * shape.global_batch
+    if shape.kind == "prefill":
+        return 2.0 * n * shape.seq_len * shape.global_batch
+    return 2.0 * n * shape.global_batch
+
+
+def apply_variant(cfg: ArchConfig, variant: Optional[Dict] = None) -> ArchConfig:
+    """``cfg`` with the performance flags of ``variant`` set: the config's
+    own fields (``precast_params``, ``seq_parallel``, ``fused_gate_up``)
+    and MoE's ``capacity_factor`` (ignored for a config without MoE).
+    A key that is no field of the config raises ``TypeError``, by name."""
+    if not variant:
+        return cfg
+    kw = dict(variant)
+    cf = kw.pop("capacity_factor", None)
+    if cf is not None and cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(cfg.moe, capacity_factor=float(cf))
+    return dataclasses.replace(cfg, **kw)
+
+
+def parse_set(pairs: List[str]) -> Dict[str, Any]:
+    """``--set key=value`` pairs as a variant: a float for
+    ``capacity_factor``, ``bool(int(value))`` for every other key."""
+    variant: Dict[str, Any] = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        variant[k] = float(v) if k == "capacity_factor" else bool(int(v))
+    return variant
+
+
+def meta_cell(arch: str, shape_name: str, mesh,
+              variant: Optional[Dict] = None) -> Dict[str, Any]:
+    """One cell's per-device bytes (params, optimizer state, cache) for
+    the config with ``variant`` applied, its model FLOPs and variant."""
     shape = get_shape(shape_name)
-    cfg = get_config(arch).with_tp(mesh.axis_size("model"))
+    base = apply_variant(get_config(arch), variant)
+    cfg = base.with_tp(mesh.axis_size("model"))
     model = get_model(cfg)
     params = model.param_shapes(cfg)
     rules = DECODE_RULES if shape.kind == "decode" else TRAIN_RULES
     p_shard = shardings_for(model.param_axes(cfg), rules, mesh)
+    leaves = tree_leaves(params)
     rec = {"arch": arch, "shape": shape_name,
            "mesh": "x".join(str(s) for s in mesh.shape), "kind": shape.kind,
+           "variant": dict(variant or {}),
+           "model_flops": model_flops(base, shape),
+           "param_leaves": len(leaves),
            "param_bytes_per_device": tree_bytes(params, p_shard, mesh),
            "param_bytes_total": sum(t.numel() * t.element_size()
-                                    for t in tree_leaves(params))}
+                                    for t in leaves)}
     if shape.kind == "train":
         opt = adamw_init(params)
         axes = train_state_axes(cfg, model)
@@ -110,7 +166,10 @@ def main(argv=None):
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--out", default=None, help="write the records here too")
+    ap.add_argument("--set", action="append", default=[],
+                    help="variant flag key=value (e.g. precast_params=1)")
     args = ap.parse_args(argv)
+    variant = parse_set(args.set)
     if args.all:
         cells = all_cells()
     elif args.arch and args.shape:
@@ -118,7 +177,7 @@ def main(argv=None):
     else:
         ap.error("--arch and --shape required unless --all")
     mesh = make_production_mesh(multi_pod=args.multi_pod)
-    records = [meta_cell(arch, shape, mesh) for arch, shape in cells]
+    records = [meta_cell(arch, shape, mesh, variant) for arch, shape in cells]
     for r in records:
         print(json.dumps(r))
     if args.out:
