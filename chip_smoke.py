@@ -358,6 +358,7 @@ from repro_torch.kernels import mamba2_ssd as ssd  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels import rwkv6_scan as wkv  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
 from repro_torch.kernels import xor_parity as xp  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.memory.stack import TierStack  # noqa: E402
@@ -374,7 +375,7 @@ from repro_torch.optim.compression import (compress_grads,  # noqa: E402
                                            decompress_grads, init_residual)
 from repro_torch.serve import Serve, ServeConfig, scheduler  # noqa: E402
 from repro_torch.train.step import (init_train_state, make_prefill_step,  # noqa: E402
-                                    make_train_step)
+                                    make_serve_step, make_train_step)
 from repro_torch.train.trainer import FailureEvent, Trainer  # noqa: E402
 
 SEED = 0
@@ -681,9 +682,20 @@ def make_case(b, hq, hkv, d, page, n_p, lengths, dtype, layers=1, seed=SEED):
     return q, k, v, table, lengths
 
 
+def bound_ms(work_done, dtype_name: str) -> tuple:
+    """Least time for ``(flops, bytes)`` of work: the larger of the bytes
+    over HBM bandwidth and the operations over the peak of the inputs'
+    type; and which of the two it is."""
+    flops, nbytes = work_done
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_OPS[dtype_name]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
 def kernel_bound_ms(q, k_pages, table, lengths, quant=False) -> tuple:
-    """Least time for the work of one call: the unique valid K/V rows (and
-    scales) read once plus q, table and lengths read and out written,
+    """Least time for the work of one call (``kernels.work.paged``): the
+    unique valid K/V rows (and scales) read once, deduplicated from the
+    table's values here, plus q, table and lengths read and out written,
     over HBM bandwidth; against 4 flops per (q head, position, dim) over
     the peak of the inputs' type."""
     n, page, hkv, d = k_pages.shape
@@ -692,13 +704,11 @@ def kernel_bound_ms(q, k_pages, table, lengths, quant=False) -> tuple:
     for r, ln in enumerate(lengths.cpu().tolist()):
         for p in range(min(ln, t.shape[1] * page)):
             rows.add((int(t[r, p // page]), p % page))
-    per_row = hkv * d * k_pages.element_size() + (hkv * 4 if quant else 0)
-    nbytes = (2 * len(rows) * per_row + 2 * q.numel() * q.element_size()
-              + table.numel() * 4 + lengths.numel() * 4)
-    ops_n = 4 * q.shape[1] * d * int(lengths.clamp(0, t.shape[1] * page).sum())
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = ops_n / PEAK_OPS[str(q.dtype).split(".")[-1]]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    positions = int(lengths.clamp(0, t.shape[1] * page).sum())
+    return bound_ms(work.paged(q.shape[0], q.shape[1], hkv, d, q.element_size(),
+                               k_pages.element_size(), t.shape[1], page,
+                               quant=quant, rows=len(rows), positions=positions),
+                    str(q.dtype).split(".")[-1])
 
 
 def sdpa_ms(q, k_layers, v_layers, table, lengths, traces=5) -> tuple:
@@ -1351,38 +1361,18 @@ def flash_grads(q, k, v, dout, use_kernel, causal=True, prefix_len=0):
     return (out.detach(),) + torch.autograd.grad(out, (q, k, v), dout)
 
 
-def visible_pairs(tq, tk, causal=True, prefix_len=0) -> int:
-    """The (query, key) pairs one head attends: every pair without
-    ``causal``; with it, each row's keys up to its diagonal or below the
-    prefix, whichever reaches further."""
-    if not causal:
-        return tq * tk
-    return sum(max(min(tk, i + 1 + tk - tq), min(prefix_len, tk))
-               for i in range(tq))
-
-
 def flash_bound_ms(b, tq, tk, hq, hkv, d, elem, backward, dv=None,
                    causal=True, prefix_len=0) -> tuple:
-    """Least time for one call: q, k, v (and o, dO for the backward) read
-    once, o or dq, dk, dv written once, plus the f32 log-sum-exp; against
-    2 flops per multiply-add over the visible (query, key) pairs this run
-    has (forward: Q K^T over d and P V over dv; backward: Q K^T, dS K and
-    dS^T Q over d, dO V^T and P^T dO over dv) at the inputs' peak rate."""
+    """Least time for one call (``kernels.work.flash_fwd`` / ``flash_bwd``):
+    q, k, v (and o, dO for the backward) read once, o or dq, dk, dv written
+    once, plus the f32 log-sum-exp; against 2 flops per multiply-add over
+    the visible (query, key) pairs this run has (forward: Q K^T over d and
+    P V over dv; backward: Q K^T, dS K and dS^T Q over d, dO V^T and P^T
+    dO over dv) at the inputs' peak rate."""
     dv = d if dv is None else dv
-    pairs = visible_pairs(tq, tk, causal, prefix_len)
-    q_bytes, k_bytes = b * tq * hq * d * elem, b * tk * hkv * d * elem
-    o_bytes, v_bytes = b * tq * hq * dv * elem, b * tk * hkv * dv * elem
-    lse = b * hq * tq * 4
-    if backward:
-        nbytes = (q_bytes + k_bytes + v_bytes + 2 * o_bytes + lse    # read
-                  + q_bytes + k_bytes + v_bytes)                     # written
-        flops = 2 * b * hq * pairs * (3 * d + 2 * dv)
-    else:
-        nbytes = q_bytes + k_bytes + v_bytes + o_bytes + lse
-        flops = 2 * b * hq * pairs * (d + dv)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_OPS["bfloat16" if elem == 2 else "float32"]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    fn = work.flash_bwd if backward else work.flash_fwd
+    return bound_ms(fn(b, tq, tk, hq, hkv, d, dv, elem, causal, prefix_len),
+                    "bfloat16" if elem == 2 else "float32")
 
 
 def cuobjdump() -> str:
@@ -1678,36 +1668,19 @@ def scan_grads(kind, ins, dy, use_kernel, dstate=None):
 
 def scan_bound_ms(kind, shape, elem, backward) -> tuple:
     """Least time for one call as the training step makes it (no initial
-    state): every input read once and every output written once, over HBM
-    bandwidth -- the forward writes y and the final state, the backward
-    reads the inputs and dy and writes their gradients (no state-shaped
-    tensor: there is no initial state to differentiate, and the saved
-    chunk states are the kernel's choice, not the function's); against the
-    multiply-adds of the recurrence (5 flops per state element and token
-    forward, 14 backward: the states, G, and the four gradient
-    contractions) at the inputs' peak rate."""
-    if kind == "wkv6":
-        b, t, h, d = shape
-        act = b * t * h * d
-        state = b * h * d * d * 4
-        fwd_bytes = 3 * act * elem + act * 4 + h * d * 4 + act * elem + state
-        bwd_bytes = (3 * act * elem + act * 4 + h * d * 4 + act * elem
-                     + 3 * act * elem + act * 4 + h * d * 4)
-        cells = b * t * h * d * d
-    else:
-        b, t, h, p, n = shape
-        act = b * t * h * p
-        bc = 2 * b * t * n * elem
-        state = b * h * p * n * 4
-        fwd_bytes = act * elem + b * t * h * 4 + h * 4 + bc + act * elem + state
-        bwd_bytes = (act * elem + b * t * h * 4 + h * 4 + bc + act * elem
-                     + act * elem + b * t * h * 4 + h * 4 + bc)
-        cells = b * t * h * p * n
-    nbytes = bwd_bytes if backward else fwd_bytes
-    flops = (14 if backward else 5) * cells
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_OPS["bfloat16" if elem == 2 else "float32"]
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    state; ``kernels.work.wkv6_fwd`` and the rest): every input read once
+    and every output written once, over HBM bandwidth -- the forward
+    writes y and the final state, the backward reads the inputs and dy and
+    writes their gradients (no state-shaped tensor: there is no initial
+    state to differentiate, and the saved chunk states are the kernel's
+    choice, not the function's); against the multiply-adds of the
+    recurrence (5 flops per state element and token forward, 14 backward:
+    the states, G, and the four gradient contractions) at the inputs' peak
+    rate."""
+    fn = {("wkv6", False): work.wkv6_fwd, ("wkv6", True): work.wkv6_bwd,
+          ("ssd", False): work.mamba2_ssd_fwd,
+          ("ssd", True): work.mamba2_ssd_bwd}[kind, backward]
+    return bound_ms(fn(*shape, elem), "bfloat16" if elem == 2 else "float32")
 
 
 def check_head_rms(name, got, want, head_dim):
@@ -2591,7 +2564,7 @@ def phase9(state) -> dict:
     r, m, _ = stacked.shape
     ms = time_ms(lambda: xp.xor_reduce(stacked), iters=20, warmup=3)
     plain_ms = time_ms(lambda: ref.xor_reduce(stacked), iters=5, warmup=1)
-    bound = (r + 1) * m * 512 / HBM_BYTES_PER_S * 1e3
+    bound = work.xor_reduce(r, m)[1] / HBM_BYTES_PER_S * 1e3
     say(f"  xor_reduce at R={r}, M={m}: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
     return {"name": "xor_reduce", "route": "cuda",
@@ -5489,7 +5462,8 @@ def meta_layout(cfg) -> dict:
 
 
 def phase20_dryrun() -> dict:
-    """(b) ``python -m repro_torch.launch.dryrun`` (its ``main``) for each
+    """(b) ``python -m repro_torch.launch.dryrun --fast`` (its ``main``,
+    the meta layout's fields; phase 21 holds the full count) for each
     cell, plain and with ``--set`` of the variant: the records' model FLOPs
     against the closed form, the variant in the config and in the built
     layout, the parameter bytes of that layout; an unknown key refused."""
@@ -5500,7 +5474,8 @@ def phase20_dryrun() -> dict:
         shape = get_shape(shape_name)
         recs, layouts = {}, {}
         for tag, extra, var in (("plain", [], {}), ("variant", sets, variant)):
-            rec, = dryrun.main(["--arch", arch, "--shape", shape_name, *extra])
+            rec, = dryrun.main(["--arch", arch, "--shape", shape_name,
+                                "--fast", *extra])
             cfg = dryrun.apply_variant(get_config(arch), var)
             tokens = shape.global_batch * (
                 1 if shape.kind == "decode" else shape.seq_len)
@@ -5553,7 +5528,7 @@ def phase20_dryrun() -> dict:
             f"{recs['variant']['param_bytes_per_device']} B a device")
         out[arch] = recs
     try:
-        dryrun.main(["--arch", P20["arch"], "--shape", "train_4k",
+        dryrun.main(["--arch", P20["arch"], "--shape", "train_4k", "--fast",
                      "--set", "no_such_flag=1"])
     except TypeError as e:
         if "no_such_flag" not in str(e):
@@ -5571,6 +5546,181 @@ def phase20() -> dict:
     out = {"roundtrip": phase20_roundtrip(), "dryrun": phase20_dryrun()}
     out["seconds"] = time.perf_counter() - t0
     say(f"  phase 20 took {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------- #
+# phase 21: the dry run's count held against a step on the card
+# ---------------------------------------------------------------------- #
+
+# (a) phi3-mini-3.8b at published width with phase 8's depth and B x T,
+# (b) rwkv6-3b at one layer (the WKV6 kernels): one training step on the
+# card under the counter against lower_cell's count of the same cell on
+# meta; (c) one full-depth phi3 decode step over a B 4 x 2,048 cache:
+# memory only
+P21 = dict(train=((TRAIN["arch"], TRAIN["layers"]), ("rwkv6-3b", 1)),
+           batch=TRAIN["batch"], seq=TRAIN["seq"],
+           decode=(TRAIN["arch"], 4, 2048), reps=5,
+           mem_rel=0.10, mem_abs=64 * 2**20)
+# each kernel function's wrapper and its ``.launches`` per call on these
+# paths (bf16, heads of at most 256 and 64: no workspace, no tiles)
+P21_WRAPPERS = {"flash_attention_fwd": (fa.flash_attention_fwd, 1),
+                "flash_attention_bwd": (fa.flash_attention_bwd, 3),
+                "wkv6_fwd": (wkv.wkv6_fwd, 1), "wkv6_bwd": (wkv.wkv6_bwd, 1)}
+
+
+def p21_memory_gate(tag, card_peak, meta_temp, failures) -> dict:
+    """The card's peak over the step (less what was held before it)
+    against the meta tracker's ``temp_size_in_bytes``: within 10% or 64
+    MiB, whichever is larger (the cuBLAS workspace, the allocator's 512 B
+    rounding)."""
+    tol = max(P21["mem_rel"] * meta_temp, P21["mem_abs"])
+    say(f"  {tag}: peak over the step {card_peak} B on the card, "
+        f"{meta_temp} B by the meta tracker ({card_peak / max(meta_temp, 1):.4f}"
+        f"x; tolerance {tol:.0f} B)")
+    if abs(card_peak - meta_temp) > tol:
+        failures.append(f"{tag}: peak {card_peak} B on the card against "
+                        f"{meta_temp} B on meta (tolerance {tol:.0f} B)")
+    return {"card_peak_bytes": card_peak, "meta_temp_bytes": meta_temp,
+            "tolerance_bytes": tol}
+
+
+def p21_diff(meta_ops: dict, card_ops: dict) -> list:
+    """The operators whose counts differ between meta and the card."""
+    return [(name, meta_ops.get(name), card_ops.get(name))
+            for name in sorted(set(meta_ops) | set(card_ops))
+            if meta_ops.get(name) != card_ops.get(name)]
+
+
+def phase21_train(arch: str, layers: int, smi: str, failures) -> dict:
+    shape = ShapeSpec(f"B{P21['batch']}xT{P21['seq']}", P21["seq"],
+                      P21["batch"], "train")
+    t0 = time.perf_counter()
+    meta = dryrun.lower_cell(arch, shape, None, tp=1, n_layers=layers)
+    meta_s = time.perf_counter() - t0
+    cfg = dataclasses.replace(get_config(arch), n_layers=layers).with_tp(1)
+    model = get_model(cfg)
+    state = init_train_state(SEED, cfg, model, device=DEVICE)
+    batch = registry.make_inputs(
+        cfg, shape, torch.Generator(device=DEVICE).manual_seed(SEED), device=DEVICE)
+    step = make_train_step(cfg, model, remat=True,
+                           micro_batches=meta["micro_batches"])
+    step(state, batch)                 # warm-up: first launches, cuBLAS
+    release()
+    torch.cuda.synchronize()
+    base = {name: fn.launches for name, (fn, _) in P21_WRAPPERS.items()}
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with dryrun.CostCounter(DEVICE) as counter:
+        out = step(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    del out
+    card = counter.record()
+    launches = {name: fn.launches - base[name]
+                for name, (fn, _) in P21_WRAPPERS.items()}
+    tag = f"(a) {arch}" if arch == TRAIN["arch"] else f"(b) {arch}"
+    say(f"  {tag}: published width, {layers} layer(s), B {P21['batch']} x T "
+        f"{P21['seq']}, {meta['micro_batches']} micro-batches (lower_cell's "
+        f"choice), remat; meta count in {meta_s:.2f} s")
+    say(f"  {tag}: FLOPs card {card['flops']} meta {meta['flops']}; bytes "
+        f"card {card['bytes']} meta {meta['bytes']}")
+    say(f"  {tag}: kernels card {json.dumps(card['kernels'])}")
+    say(f"  {tag}: kernels meta {json.dumps(meta['kernels'])}")
+    say(f"  {tag}: wrapper launches in the counted step {launches}")
+    same = (card["flops"], card["bytes"], card["kernels"]) == (
+        meta["flops"], meta["bytes"], meta["kernels"])
+    if not same:
+        for name, m, c in p21_diff(meta["ops"], counter.ops):
+            say(f"    differs: {name}: meta {m}, card {c}")
+        failures.append(f"{tag}: the card's count differs from the meta count")
+    for name, rec in meta["kernels"].items():
+        per_call = P21_WRAPPERS[name][1]
+        if launches.get(name) != rec["calls"] * per_call or not rec["calls"]:
+            failures.append(f"{tag}: {name}: {launches.get(name)} launches for "
+                            f"{rec['calls']} calls x {per_call}")
+    for name, n in launches.items():
+        if n and name not in meta["kernels"]:
+            failures.append(f"{tag}: {name} launched {n} times, counted never")
+    memory = p21_memory_gate(tag, peak, meta["memory"]["temp_size_in_bytes"],
+                             failures)
+    times = []
+    for _ in range(P21["reps"]):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step(state, batch)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        del out
+    ms = sorted(times)[len(times) // 2]
+    tflops = meta["flops"] / (ms * 1e-3) / 1e12
+    share = tflops * 1e12 / PEAK_OPS["bfloat16"]
+    say(f"  {tag}: step {ms:.3f} ms (CUDA events, median of "
+        f"{P21['reps']} after a warm-up: {[round(t, 3) for t in times]}); "
+        f"{meta['flops']} counted FLOPs -> {tflops:.2f} TFLOP/s, "
+        f"{100 * share:.2f}% of the bf16 peak of "
+        f"{PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s ({smi})")
+    del state, batch, step
+    release()
+    return {"arch": arch, "layers": layers, "batch": P21["batch"],
+            "seq": P21["seq"], "micro_batches": meta["micro_batches"],
+            "flops": meta["flops"], "bytes": meta["bytes"],
+            "kernels": meta["kernels"], "counts_equal": same,
+            "launches": launches, "memory": memory, "step_ms": ms,
+            "step_ms_all": times, "tflops": tflops, "bf16_peak_share": share,
+            "meta_count_s": meta_s, "card": smi}
+
+
+def phase21_decode(failures) -> dict:
+    arch, rows, seq = P21["decode"]
+    shape = ShapeSpec(f"B{rows}xS{seq}", seq, rows, "decode")
+    meta = dryrun.lower_cell(arch, shape, None, tp=1)
+    cfg = get_config(arch).with_tp(1)
+    model = get_model(cfg)
+    params = model.init(SEED, cfg, device=DEVICE)
+    cache = model.init_cache(cfg, rows, seq, device=DEVICE)
+    tokens = torch.randint(0, cfg.vocab_size, (rows,), dtype=torch.int32,
+                           device=DEVICE)
+    step = make_serve_step(cfg, model)
+    out = step(params, cache, tokens, seq - 1)      # warm-up
+    del out
+    release()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with dryrun.CostCounter(DEVICE) as counter:
+        out = step(params, cache, tokens, seq - 1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    del out
+    card = counter.record()
+    tag = f"(c) {arch} decode"
+    say(f"  {tag}: full depth ({cfg.n_layers} layers), B {rows} over a cache "
+        f"of {seq}; FLOPs card {card['flops']} meta {meta['flops']}, bytes "
+        f"card {card['bytes']} meta {meta['bytes']} (reported)")
+    memory = p21_memory_gate(tag, peak, meta["memory"]["temp_size_in_bytes"],
+                             failures)
+    del params, cache, tokens
+    release()
+    return {"arch": arch, "rows": rows, "cache": seq, "memory": memory,
+            "counts_equal": (card["flops"], card["bytes"]) == (
+                meta["flops"], meta["bytes"])}
+
+
+def phase21(smi: str) -> dict:
+    say("== phase 21: the dry run's count (lower_cell on meta) against steps "
+        "on the card")
+    t0 = time.perf_counter()
+    failures = []
+    out = {"train": [phase21_train(arch, layers, smi, failures)
+                     for arch, layers in P21["train"]],
+           "decode": phase21_decode(failures)}
+    out["seconds"] = time.perf_counter() - t0
+    say(f"  phase 21 took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 21: " + "; ".join(failures))
     return out
 
 
@@ -5799,6 +5949,12 @@ def main() -> int:
             **{key: {"lengths": r["lengths"],
                      "paginate_cache_ms": r["paginate_cache_ms"], **r[name]}
                for key, r in roundtrip["times"].items()}}
+
+    p21 = phase21(smi)
+    for run in p21["train"]:
+        for name, rec in run["kernels"].items():
+            kernels[name]["phase21_" + run["arch"]] = {
+                **rec, "launches": run["launches"][name]}
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

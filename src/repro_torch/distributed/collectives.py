@@ -14,6 +14,16 @@ tensor.  The reference's rule decides where the kernel runs: only a
 ends with the XOR of all blocks (parity everywhere: any single lost block
 is reconstructible from any survivor's copy).
 
+Under an active dry-run counter (:mod:`repro_torch.launch.dryrun`) each
+collective records its kind, the bytes of its result on one rank and its
+group's size; the operators inside it are not counted.  On a dry mesh
+(:meth:`repro_torch.distributed.mesh.Mesh.dry_run`) the group is a
+:class:`~repro_torch.distributed.mesh.DryGroup`: a collective of meta
+tensors records itself and returns a meta result of the right shape, and
+no process group is made.  What each records is what the port runs:
+``psum_scatter`` is an all-reduce and a slice here, so it records an
+all-reduce.
+
 A group in place of a mesh axis name.  NCCL refuses two ranks on one
 device, so ranks that share a card run on a gloo group; gloo's exchange
 and sums then go through host staging buffers (a card tensor is copied to
@@ -51,13 +61,15 @@ place, leaf by leaf in the tree's fixed order.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels import ops
+from repro_torch.distributed.mesh import DryGroup
+from repro_torch.kernels import ops, work
 
 __all__ = ["all_gather", "all_to_all", "average_gradients", "copy_to_group",
            "grid_groups", "hierarchical_psum", "pmean", "psum",
@@ -65,10 +77,35 @@ __all__ = ["all_gather", "all_to_all", "average_gradients", "copy_to_group",
            "xor_reduce_to"]
 
 
+def _dry(x: torch.Tensor, group) -> bool:
+    """Whether ``group`` is a dry mesh's record-only group, whose
+    collectives move nothing: they take meta tensors only."""
+    if not isinstance(group, DryGroup):
+        return False
+    if x.device.type != "meta":
+        raise ValueError(f"a dry mesh's collectives take meta tensors, got "
+                         f"{x.device}")
+    return True
+
+
+def _recorded(kind: str, nbytes: int, group):
+    """The context of one collective of ``kind`` whose result holds
+    ``nbytes`` on each rank: an active dry-run counter records it (and
+    counts none of the operators inside)."""
+    if work.ACTIVE is None:
+        return contextlib.nullcontext()
+    return work.ACTIVE.collective(kind, nbytes, _size(group))
+
+
+def _nbytes(x: torch.Tensor) -> int:
+    return x.numel() * x.element_size()
+
+
 def _staged(x: torch.Tensor, group) -> bool:
     """Whether ``x`` goes through a host buffer on ``group`` (a card
     tensor on a gloo group)."""
-    return x.device.type != "cpu" and dist.get_backend(group) == dist.Backend.GLOO
+    return (x.device.type != "cpu" and not isinstance(group, DryGroup)
+            and dist.get_backend(group) == dist.Backend.GLOO)
 
 
 def _sync(x: torch.Tensor) -> None:
@@ -78,6 +115,13 @@ def _sync(x: torch.Tensor) -> None:
 
 def _exchange(x: torch.Tensor, peer: int, group) -> torch.Tensor:
     """Send ``x`` to group rank ``peer`` and receive its block."""
+    with _recorded("collective-permute", _nbytes(x), group):
+        return _swap(x, peer, group)
+
+
+def _swap(x: torch.Tensor, peer: int, group) -> torch.Tensor:
+    if _dry(x, group):
+        return torch.empty_like(x)
     staged = _staged(x, group)
     send = x.cpu() if staged else x.contiguous()
     recv = torch.empty_like(send)
@@ -104,11 +148,11 @@ def xor_all_reduce(x: torch.Tensor, group=None,
     None; its size a power of two).  ``x``: int32, the same shape on every
     rank.  ``rounds``, when given, receives each round's ``exchange_s`` and
     ``combine_s`` (host clock, the card synchronized around each part)."""
-    n = dist.get_world_size(group)
+    n = _size(group)
     if n & (n - 1):
         raise ValueError(f"xor_all_reduce needs a power-of-two group, got {n} "
                          "ranks: the butterfly pairs rank i with i ^ step")
-    me = dist.get_rank(group)
+    me = _rank(group)
     step = 1
     while step < n:
         t0 = time.perf_counter()
@@ -133,6 +177,13 @@ def xor_reduce_to(x: torch.Tensor, group=None, root: int = 0) -> torch.Tensor:
 
 
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    with _recorded("all-reduce", _nbytes(x), group):
+        return _reduced(x, group)
+
+
+def _reduced(x: torch.Tensor, group) -> torch.Tensor:
+    if _dry(x, group):
+        return torch.empty_like(x)
     if _staged(x, group):
         host = x.cpu()
         dist.all_reduce(host, group=group)
@@ -181,7 +232,15 @@ def grid_groups(n_outer: int, n_inner: int, backend: Optional[str] = None
 
 
 def _size(group) -> int:
+    if isinstance(group, DryGroup):
+        return group.size()
     return dist.get_world_size(group)
+
+
+def _rank(group) -> int:
+    if isinstance(group, DryGroup):
+        return group.rank()
+    return dist.get_rank(group)
 
 
 def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int
@@ -190,6 +249,17 @@ def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int
     if x.shape[split_axis] % n:
         raise ValueError(f"all_to_all: axis {split_axis} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
+    with _recorded("all-to-all", _nbytes(x), group):
+        if _dry(x, group):
+            shape = list(x.shape)
+            shape[split_axis] //= n
+            shape[concat_axis] *= n
+            return x.new_empty(shape)
+        return _a2a_moved(x, group, split_axis, concat_axis, n)
+
+
+def _a2a_moved(x: torch.Tensor, group, split_axis: int, concat_axis: int,
+               n: int) -> torch.Tensor:
     staged = _staged(x, group)
     # (n, chunk, rest...) with the split axis in front, contiguous
     front = x.movedim(split_axis, 0)
@@ -204,9 +274,19 @@ def _a2a(x: torch.Tensor, group, split_axis: int, concat_axis: int
 
 
 def _gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:
+    n = _size(group)
+    with _recorded("all-gather", n * _nbytes(x), group):
+        if _dry(x, group):
+            shape = list(x.shape)
+            shape[axis] *= n
+            return x.new_empty(shape)
+        return _gathered(x, group, axis, n)
+
+
+def _gathered(x: torch.Tensor, group, axis: int, n: int) -> torch.Tensor:
     staged = _staged(x, group)
     send = (x.cpu() if staged else x).contiguous()
-    parts = [torch.empty_like(send) for _ in range(_size(group))]
+    parts = [torch.empty_like(send) for _ in range(n)]
     dist.all_gather(parts, send, group=group)
     out = torch.cat(parts, dim=axis)
     return out.to(x.device) if staged else out
@@ -222,7 +302,7 @@ def _scatter_sum(x: torch.Tensor, group, axis: int) -> torch.Tensor:
         raise ValueError(f"psum_scatter: axis {axis} of {tuple(x.shape)} "
                          f"does not split over {n} ranks")
     block = x.shape[axis] // n
-    return _sum(x, group).narrow(axis, dist.get_rank(group) * block,
+    return _sum(x, group).narrow(axis, _rank(group) * block,
                                  block).contiguous()
 
 
@@ -375,11 +455,14 @@ def average_gradients(grads, group):
     if n == 1:
         return grads
     for g in tree_leaves(grads):
-        if _staged(g, group):
-            host = g.cpu()
-            dist.all_reduce(host, group=group)
-            g.copy_(host)
-        else:
-            dist.all_reduce(g, group=group)
+        with _recorded("all-reduce", _nbytes(g), group):
+            if _dry(g, group):
+                pass
+            elif _staged(g, group):
+                host = g.cpu()
+                dist.all_reduce(host, group=group)
+                g.copy_(host)
+            else:
+                dist.all_reduce(g, group=group)
         g.div_(n)
     return grads

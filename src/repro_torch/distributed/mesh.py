@@ -11,6 +11,13 @@ that share this rank's coordinates on every other axis).  A rank's
 coordinate along an axis is its index in that group, which is JAX's
 ``axis_index``.
 
+A dry mesh (:meth:`Mesh.dry_run`) is the same grid seen from its first
+rank, with no world at all: its groups are :class:`DryGroup` records of
+the axis's members, and the collectives of
+:mod:`repro_torch.distributed.collectives` on meta tensors record
+themselves there and return meta results (the dry run's step on the meta
+device, :mod:`repro_torch.launch.dryrun`).
+
 Building a mesh touches no process group; the groups are made at first
 use, each once per process for its set of ranks
 (``use_local_synchronization``: only the members take part, so a mesh
@@ -28,7 +35,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["DATA_AXES", "MODEL_AXIS", "Mesh"]
+__all__ = ["DATA_AXES", "MODEL_AXIS", "DryGroup", "Mesh"]
 
 DATA_AXES = ("pod", "data")
 MODEL_AXIS = "model"
@@ -39,13 +46,32 @@ _GROUPS: Dict[Tuple[int, ...], object] = {}
 Axes = Union[str, Sequence[str]]
 
 
+class DryGroup:
+    """A record-only group: the global ranks of one axis group of a dry
+    mesh, and the viewing rank's place among them.  It makes no process
+    group and moves nothing."""
+
+    def __init__(self, members: Sequence[int], rank: int):
+        self.members = tuple(members)
+        self._rank = rank
+
+    def size(self) -> int:
+        return len(self.members)
+
+    def rank(self) -> int:
+        return self._rank
+
+    def __repr__(self) -> str:
+        return f"DryGroup({self.members}, rank={self._rank})"
+
+
 class Mesh:
     """Ranks on a named grid: ``shape`` and ``axis_names`` as in JAX's
     ``jax.make_mesh(shape, axis_names)``, ``ranks`` the global rank at
-    each grid point."""
+    each grid point; ``dry`` for :meth:`dry_run`'s view."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str],
-                 ranks: Optional[np.ndarray] = None):
+                 ranks: Optional[np.ndarray] = None, dry: bool = False):
         self.shape = tuple(int(s) for s in shape)
         self.axis_names = tuple(axis_names)
         if len(self.shape) != len(self.axis_names):
@@ -57,6 +83,12 @@ class Mesh:
         if self.ranks.shape != self.shape:
             raise ValueError(f"ranks {self.ranks.shape} do not match shape "
                              f"{self.shape}")
+        self.dry = dry
+
+    def dry_run(self) -> "Mesh":
+        """This grid as its first rank sees it, with no world: coordinates
+        are that rank's and :meth:`group` gives :class:`DryGroup` records."""
+        return Mesh(self.shape, self.axis_names, self.ranks, dry=True)
 
     # the names ``sharding`` reads, as a DeviceMesh gives them
     @property
@@ -87,8 +119,9 @@ class Mesh:
 
     def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
         """Axis name -> ``rank``'s coordinate (this process's rank when
-        None)."""
-        rank = dist.get_rank() if rank is None else rank
+        None; a dry mesh's first rank)."""
+        if rank is None:
+            rank = int(self.ranks.flat[0]) if self.dry else dist.get_rank()
         at = np.argwhere(self.ranks == rank)
         if not len(at):
             raise ValueError(f"rank {rank} is not in {self}")
@@ -122,8 +155,11 @@ class Mesh:
 
     def group(self, axes: Axes):
         """The process group over ``axes`` that holds this rank (made at
-        first use; the default group when it is the whole world)."""
+        first use; the default group when it is the whole world); on a dry
+        mesh, its :class:`DryGroup`."""
         members = self.group_ranks(axes)
+        if self.dry:
+            return DryGroup(members, members.index(int(self.ranks.flat[0])))
         if members == tuple(range(dist.get_world_size())):
             return dist.group.WORLD
         if members not in _GROUPS:
@@ -136,7 +172,7 @@ class Mesh:
         take = [slice(None)] * len(self.shape)
         take[self.axis_names.index(axis)] = slice(start, stop)
         ranks = self.ranks[tuple(take)]
-        return Mesh(ranks.shape, self.axis_names, ranks)
+        return Mesh(ranks.shape, self.axis_names, ranks, dry=self.dry)
 
     def shard_rows(self, x: torch.Tensor, axes: Axes = DATA_AXES,
                    dim: int = 0) -> torch.Tensor:

@@ -18,6 +18,10 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List, Optional
 
+# the devices whose tensors the kernel wrappers take: a CUDA tensor
+# launches the kernel, a meta tensor takes its shape rule (the wrapper's
+# checks and allocations, no launch and no count)
+KERNEL_DEVICES = ("cuda", "meta")
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -42,8 +42,13 @@ fixed.
 (``torch.autograd.Function``); :func:`flash_attention_fwd` and
 :func:`flash_attention_bwd` launch the kernels and count their launches
 in ``.launches``, and by :func:`route` in ``.by_route``.  They take CUDA
-tensors only; the plain version lives in :mod:`repro_torch.kernels.ref`
-and :mod:`repro_torch.kernels.ops` picks between the two by device.
+tensors, or meta tensors for the kernels' shape rule (the same checks and
+allocations, the backward's workspace from :func:`bwd_workspace_bytes`;
+no launch and no count); the plain version lives in
+:mod:`repro_torch.kernels.ref` and :mod:`repro_torch.kernels.ops` picks
+between the two by device.  Each forward and backward of the autograd
+function reports its work (:mod:`repro_torch.kernels.work`) to an active
+dry-run counter.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the bfloat16 (tensor-core) route's instantiations: square head dims (256:
@@ -74,9 +79,13 @@ ROUTE_KERNELS = {
 }
 # the source's route codes (repro_flash_route)
 ROUTE_CODES = {"f32": 0, "bf16": 1, "f32_wide": 2, "bf16_wide": 3}
+# the CUDA source's constants that size the bf16 wide backward's split
+# (bwd_workspace_bytes): the H100's SMs, hopper::kTile, kSliceW
+_SM_COUNT, _KEY_TILE, _SLICE_W = 132, 64, 256
 
-__all__ = ["bf16_kernel_dims", "flash_attention", "flash_attention_fwd",
-           "flash_attention_bwd", "is_wide", "padded_dims", "route"]
+__all__ = ["bf16_kernel_dims", "bwd_workspace_bytes", "flash_attention",
+           "flash_attention_fwd", "flash_attention_bwd", "is_wide",
+           "padded_dims", "route"]
 
 
 def padded_dims(d: int, dv: int) -> Tuple[int, int]:
@@ -120,6 +129,26 @@ def bf16_kernel_dims(d: int, dv: int) -> Tuple[int, int]:
     if dims < 0:
         raise ValueError(f"the bfloat16 route takes no ({d}, {dv}) call")
     return dims // 65536, dims % 65536
+
+
+def bwd_workspace_bytes(dtype: torch.dtype, b: int, tk: int, hq: int,
+                        hkv: int, d: int, dv: int) -> int:
+    """The f32 workspace the backward takes at padded widths (d, dv), as
+    the CUDA source's ``bwd_workspace_bytes`` sizes it (its
+    ``repro_flash_bwd_workspace``, which the card's calls ask): on the
+    bf16 wide route only, the split's partial sums (groups, B, Tk, Hkv,
+    d + dv) where ``kv_groups`` splits each kv head's query heads, the
+    smallest divisor of the group that brings the dK/dV grid to four
+    waves of the SMs; 0 elsewhere.  The meta device's shape rule uses
+    it."""
+    if route(dtype, d, dv) != "bf16_wide":
+        return 0
+    g = hq // hkv
+    blocks = b * hkv * -(-tk // _KEY_TILE) * (-(-d // _SLICE_W)
+                                              + -(-dv // _SLICE_W))
+    groups = next((n for n in range(1, g) if g % n == 0
+                   and blocks * n >= 4 * _SM_COUNT), g)
+    return 0 if groups == 1 else 4 * groups * b * tk * hkv * (d + dv)
 
 
 def _pad(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -169,9 +198,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name} must be a {q.dtype} tensor of shape "
                              f"{(b, tq, hq, dv)}")
     for t in (q, k, v, *outputs.values()):
-        if t.device.type != "cuda":
-            raise ValueError("the flash-attention kernel takes CUDA tensors; "
-                             "kernels.ref holds the plain version")
+        if t.device.type not in _build.KERNEL_DEVICES:
+            raise ValueError("the flash-attention kernel takes CUDA (or meta) "
+                             "tensors; kernels.ref holds the plain version")
         if t.device != q.device:
             raise ValueError(f"all tensors must be on {q.device}, got {t.device}")
         _check_layout(t)
@@ -213,6 +242,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = _pad(q, kd), _pad(k, kd), _pad(v, kdv)
     out = torch.empty((b, tq, hq, kdv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, hq, tq), dtype=torch.float32, device=q.device)
+    if q.device.type == "meta":
+        return _unpad(out, dv), lse
     lib = _build.library("flash_attention")
     err = lib.repro_flash_fwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -250,23 +281,27 @@ def flash_attention_bwd(q, k, v, out, lse, dout, causal: bool = True,
     out, dout = _pad(out, kdv), _pad(dout, kdv)
     delta = torch.empty_like(lse)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    lib = _build.library("flash_attention")
-    nbytes = lib.repro_flash_bwd_workspace(_DTYPE_CODE[q.dtype], b, tk, hq, hkv,
-                                           kd, kdv)
+    meta = q.device.type == "meta"
+    lib = None if meta else _build.library("flash_attention")
+    nbytes = (bwd_workspace_bytes(q.dtype, b, tk, hq, hkv, kd, kdv) if meta
+              else lib.repro_flash_bwd_workspace(_DTYPE_CODE[q.dtype], b, tk,
+                                                 hq, hkv, kd, kdv))
     if nbytes < 0:
         raise ValueError(f"the backward takes no {tuple(q.shape)} over "
                          f"{tuple(k.shape)} call")
-    work = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
-            if nbytes else None)
+    space = (torch.empty(nbytes // 4, dtype=torch.float32, device=q.device)
+             if nbytes else None)
+    if meta:
+        return _unpad(dq, d), _unpad(dk, d), _unpad(dv, dv_)
     err = lib.repro_flash_bwd(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, tq, tk, hq, hkv, kd,
         kdv, _scale(d, scale), int(causal), _prefix(k, prefix_len),
-        None if work is None else work.data_ptr(),
+        None if space is None else space.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(err, "flash_attention_bwd")
-    n = 3 if work is None else 4     # delta, dQ, dK/dV and the split's sum
+    n = 3 if space is None else 4    # delta, dQ, dK/dV and the split's sum
     flash_attention_bwd.launches += n
     flash_attention_bwd.by_route[route(q.dtype, kd, kdv)] += n
     return _unpad(dq, d), _unpad(dk, d), _unpad(dv, dv_)
@@ -281,7 +316,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale, prefix_len):
-        out, lse = flash_attention_fwd(q, k, v, causal, scale, prefix_len)
+        out, lse = work.counted(
+            "flash_attention_fwd",
+            lambda: work.flash_fwd(*_work_shape(q, k, v), causal, prefix_len),
+            flash_attention_fwd, q, k, v, causal, scale, prefix_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale, ctx.prefix_len = causal, scale, prefix_len
         return out
@@ -289,9 +327,20 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout.contiguous(),
-                                         ctx.causal, ctx.scale, ctx.prefix_len)
+        dq, dk, dv = work.counted(
+            "flash_attention_bwd",
+            lambda: work.flash_bwd(*_work_shape(q, k, v), ctx.causal,
+                                   ctx.prefix_len),
+            flash_attention_bwd, q, k, v, out, lse, dout.contiguous(),
+            ctx.causal, ctx.scale, ctx.prefix_len)
         return dq, dk, dv, None, None, None
+
+
+def _work_shape(q, k, v) -> tuple:
+    """(B, Tq, Tk, Hq, Hkv, D, Dv, element size) of a call, for
+    :mod:`repro_torch.kernels.work`."""
+    b, tq, hq, d = q.shape
+    return b, tq, k.shape[1], hq, k.shape[2], d, v.shape[3], q.element_size()
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

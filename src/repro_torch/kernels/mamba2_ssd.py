@@ -32,9 +32,13 @@ are assembled from the tiles' blocks.
 :func:`mamba2_ssd` is the differentiable entry point
 (``torch.autograd.Function``); :func:`ssd_fwd` and :func:`ssd_bwd` launch
 the kernels and count their wrapper calls in ``.launches`` (CUDA launches
-per call: :data:`CUDA_LAUNCHES`).  They take CUDA tensors only; the plain
-version is :func:`repro_torch.kernels.ops.mamba2_chunked`, and
-:mod:`repro_torch.kernels.ops` picks between the two by device.
+per call: :data:`CUDA_LAUNCHES`).  They take CUDA tensors, or meta tensors
+for the kernels' shape rule (the same checks and allocations, no launch
+and no count); the plain version is
+:func:`repro_torch.kernels.ops.mamba2_chunked`, and
+:mod:`repro_torch.kernels.ops` picks between the two by device.  Each call
+of :func:`mamba2_ssd` and each backward reports its work
+(:mod:`repro_torch.kernels.work`) to an active dry-run counter.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._tiles import block, check_ckpts, cols, fsum, put_block
 
 CHUNK = 64          # tokens per chunk; the state-save interval (kChunk)
@@ -96,7 +100,7 @@ def _stream(x: torch.Tensor) -> int:
 def _check(x, dt, A, Bm, Cm, state) -> None:
     """Raise on anything the kernels do not take."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("Bm", Bm), ("Cm", Cm)):
-        if t.device.type != "cuda" or t.device != x.device:
+        if t.device.type not in _build.KERNEL_DEVICES or t.device != x.device:
             raise ValueError(f"the SSD kernel takes CUDA tensors on one device; "
                              f"{name} is on {t.device} (ops.mamba2_chunked is "
                              "the plain version)")
@@ -171,6 +175,8 @@ def _fwd1(x, dt, A, Bm, Cm, state, save):
     s_out = torch.empty((b, h, p, n), dtype=torch.float32, device=x.device)
     ckpt = (torch.empty((b, h, -(-t // CHUNK), p, n), dtype=torch.float32,
                         device=x.device) if save else None)
+    if x.device.type == "meta":
+        return y, s_out, ckpt
     lib = _build.library("mamba2_ssd")
     err = lib.repro_ssd_fwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -251,6 +257,8 @@ def _bwd1(x, dt, A, Bm, Cm, ckpt, dy, dstate):
     ds0 = torch.empty((b, h, p, n), dtype=f32, device=dev)
     dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
     dA = torch.empty((h,), dtype=f32, device=dev)
+    if x.device.type == "meta":
+        return dx, ddt, dA, dB, dC, ds0
     lib = _build.library("mamba2_ssd")
     err = lib.repro_ssd_bwd(
         _DTYPE_CODE[x.dtype], x.data_ptr(), dt.data_ptr(), A.data_ptr(),
@@ -282,8 +290,13 @@ class _SSD(torch.autograd.Function):
         x, dt, A, Bm, Cm, *ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
-        dx, ddt, dA, dB, dC, ds0 = ssd_bwd(
-            x, dt, A, Bm, Cm, tuple(ckpt), dy.contiguous(), None if dstate is None else dstate.contiguous())
+        dx, ddt, dA, dB, dC, ds0 = work.counted(
+            "mamba2_ssd_bwd",
+            lambda: work.mamba2_ssd_bwd(*x.shape, Bm.shape[-1],
+                                        x.element_size(), dstate is not None,
+                                        ctx.needs_input_grad[5]),
+            ssd_bwd, x, dt, A, Bm, Cm, tuple(ckpt), dy.contiguous(),
+            None if dstate is None else dstate.contiguous())
         return dx, ddt, dA, dB, dC, ds0 if ctx.needs_input_grad[5] else None
 
 
@@ -294,7 +307,16 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     """The SSD scan through the CUDA kernels: ``(y, final state)``,
     differentiable in x, dt, A, Bm, Cm and the initial state, through y and
     the final state.  Without a gradient to track, the forward alone,
-    saving nothing."""
+    saving nothing.  Each call reports its work to an active dry-run
+    counter."""
+    return work.counted(
+        "mamba2_ssd_fwd",
+        lambda: work.mamba2_ssd_fwd(*x.shape, Bm.shape[-1], x.element_size(),
+                                    state is not None),
+        _mamba2_ssd, x, dt, A, Bm, Cm, state)
+
+
+def _mamba2_ssd(x, dt, A, Bm, Cm, state):
     ins = (x, dt, A, Bm, Cm) + (() if state is None else (state,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         if state is None:

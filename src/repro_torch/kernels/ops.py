@@ -5,11 +5,20 @@ Here the tensor decides:
 
 * a CUDA tensor launches the hand-written kernel, or the wrapper raises —
   nothing falls back;
+* a meta tensor takes the kernel's shape rule: the wrapper's checks and
+  allocations (outputs, what the autograd function saves, workspaces),
+  no launch and never the plain body, so a dry run on the meta device
+  (:mod:`repro_torch.launch.dryrun`) sees what the card allocates;
 * a CPU tensor runs the plain PyTorch version in
   :mod:`repro_torch.kernels.ref`;
-* ``use_kernel=False`` runs the plain version on a CUDA tensor (the
-  comparisons in ``chip_smoke.py`` use it); ``use_kernel=True`` on a CPU
-  tensor raises.
+* ``use_kernel=False`` runs the plain version on a CUDA or meta tensor
+  (the comparisons in ``chip_smoke.py`` use it); ``use_kernel=True`` on a
+  CPU tensor raises.
+
+Each call of a kernel function on the card or on meta reports its work
+(:mod:`repro_torch.kernels.work`) to an active dry-run counter, once per
+call: the paged functions and ``xor_reduce`` here, flash and the scans in
+their wrappers' entry points and autograd backwards.
 
 The two recurrent scans (WKV6 and Mamba2 SSD) have their plain versions
 here: the chunked forms of the reference's ``ops.wkv6_chunked`` and
@@ -31,20 +40,32 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import mamba2_ssd as ssd
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import rwkv6_scan as wkv
+from repro_torch.kernels import work
 from repro_torch.kernels import xor_parity as xp
 
 
 def _kernel_for(x: torch.Tensor, use_kernel: Optional[bool]) -> bool:
+    """Whether ``x`` goes to the kernel's wrapper (a CUDA or meta tensor,
+    unless ``use_kernel=False``) or to the plain body."""
     if use_kernel is None:
-        return x.device.type == "cuda"
-    if use_kernel and x.device.type != "cuda":
+        return x.device.type in _build.KERNEL_DEVICES
+    if use_kernel and x.device.type not in _build.KERNEL_DEVICES:
         raise ValueError(f"use_kernel=True needs a CUDA tensor, got {x.device}")
     return bool(use_kernel)
+
+
+def _paged_work(q, k_pages, page_table, quant=False, t=1):
+    """A paged call's work (:func:`work.paged`) from its shapes."""
+    _, page, hkv, d = k_pages.shape
+    return work.paged(q.shape[0], q.shape[-2], hkv, d, q.element_size(),
+                      k_pages.element_size(), page_table.shape[1], page,
+                      quant=quant, t=t)
 
 
 def _clamped(table: torch.Tensor, n: int) -> torch.Tensor:
@@ -54,7 +75,9 @@ def _clamped(table: torch.Tensor, n: int) -> torch.Tensor:
 def xor_reduce(stacked, use_kernel: Optional[bool] = None):
     """(R, M, 128) int32 -> (M, 128): XOR over axis 0."""
     if _kernel_for(stacked, use_kernel):
-        return xp.xor_reduce(stacked)
+        return work.counted("xor_reduce",
+                            lambda: work.xor_reduce(*stacked.shape[:2]),
+                            xp.xor_reduce, stacked)
     return kref.xor_reduce(stacked)
 
 
@@ -77,8 +100,10 @@ def paged_attention(q, k_pages, v_pages, page_table, lengths, scale=None,
                     use_kernel: Optional[bool] = None):
     """(B, Hq, D) decode attention over a paged pool."""
     if _kernel_for(q, use_kernel):
-        return pa.paged_attention(q, k_pages, v_pages, page_table, lengths,
-                                  scale)
+        return work.counted("paged_attention",
+                            lambda: _paged_work(q, k_pages, page_table),
+                            pa.paged_attention, q, k_pages, v_pages,
+                            page_table, lengths, scale)
     return kref.paged_attention(q, k_pages, v_pages,
                                 _clamped(page_table, k_pages.shape[0]),
                                 lengths, scale)
@@ -88,8 +113,11 @@ def paged_attention_multitok(q, k_pages, v_pages, page_table, positions,
                              scale=None, use_kernel: Optional[bool] = None):
     """(B, T, Hq, D) speculative rows over a paged pool."""
     if _kernel_for(q, use_kernel):
-        return pa.paged_attention_multitok(q, k_pages, v_pages, page_table,
-                                           positions, scale)
+        return work.counted(
+            "paged_attention_multitok",
+            lambda: _paged_work(q, k_pages, page_table, t=q.shape[1]),
+            pa.paged_attention_multitok, q, k_pages, v_pages, page_table,
+            positions, scale)
     return kref.paged_attention_multitok(
         q, k_pages, v_pages, _clamped(page_table, k_pages.shape[0]),
         positions, scale)
@@ -100,8 +128,11 @@ def paged_attention_quant(q, k_pages, k_scales, v_pages, v_scales,
                           use_kernel: Optional[bool] = None):
     """(B, Hq, D) decode attention over an int8 pool."""
     if _kernel_for(q, use_kernel):
-        return pa.paged_attention_quant(q, k_pages, k_scales, v_pages,
-                                        v_scales, page_table, lengths, scale)
+        return work.counted(
+            "paged_attention_quant",
+            lambda: _paged_work(q, k_pages, page_table, quant=True),
+            pa.paged_attention_quant, q, k_pages, k_scales, v_pages,
+            v_scales, page_table, lengths, scale)
     return kref.paged_attention_quant(
         q, k_pages, k_scales, v_pages, v_scales,
         _clamped(page_table, k_pages.shape[0]), lengths, scale)
@@ -112,9 +143,12 @@ def paged_attention_quant_multitok(q, k_pages, k_scales, v_pages, v_scales,
                                    use_kernel: Optional[bool] = None):
     """(B, T, Hq, D) speculative rows over an int8 pool."""
     if _kernel_for(q, use_kernel):
-        return pa.paged_attention_quant_multitok(
-            q, k_pages, k_scales, v_pages, v_scales, page_table, positions,
-            scale)
+        return work.counted(
+            "paged_attention_quant_multitok",
+            lambda: _paged_work(q, k_pages, page_table, quant=True,
+                                t=q.shape[1]),
+            pa.paged_attention_quant_multitok, q, k_pages, k_scales, v_pages,
+            v_scales, page_table, positions, scale)
     return kref.paged_attention_quant_multitok(
         q, k_pages, k_scales, v_pages, v_scales,
         _clamped(page_table, k_pages.shape[0]), positions, scale)

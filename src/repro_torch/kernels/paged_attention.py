@@ -4,7 +4,9 @@ Counterpart of ``repro/kernels/paged_attention.py``.  The Pallas kernels
 ``paged_attention_pallas`` and ``paged_attention_pallas_quant`` become one
 hand-written CUDA source, ``csrc/paged_attention.cu``, built at first use
 (:mod:`repro_torch.kernels._build`).  The wrappers here take CUDA tensors
-only and launch the kernel on PyTorch's current stream; the plain
+and launch the kernel on PyTorch's current stream, or meta tensors for its
+shape rule (the same checks, output and workspace, at
+:data:`SPLIT_TOKENS` positions a span; no launch and no count); the plain
 versions live in :mod:`repro_torch.kernels.ref`, and
 :mod:`repro_torch.kernels.ops` picks between the two by device.
 
@@ -67,6 +69,9 @@ __all__ = ["ROUTES", "SplitPlan", "paged_attention", "paged_attention_multitok",
 # paged_wide_kernel past them (``launch`` in csrc/paged_attention.cu)
 ROUTES = ("narrow", "wide")
 WIDE_ABOVE = 256
+# positions per span (kSplit in csrc/paged_attention.cu): the shape rule's
+# span length; on the card the built library's answer (:func:`split_tokens`)
+SPLIT_TOKENS = 64
 
 
 def route(d: int) -> str:
@@ -78,9 +83,9 @@ def route(d: int) -> str:
 def _check(q: torch.Tensor, pages: torch.Tensor, table: torch.Tensor,
            lengths: torch.Tensor, quant: bool) -> None:
     """Raise on anything the kernel does not take."""
-    if q.device.type != "cuda":
-        raise ValueError("the paged-attention kernel takes CUDA tensors; "
-                         "kernels.ref holds the plain version")
+    if q.device.type not in _build.KERNEL_DEVICES:
+        raise ValueError("the paged-attention kernel takes CUDA (or meta) "
+                         "tensors; kernels.ref holds the plain version")
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
     want = torch.int8 if quant else q.dtype
@@ -193,9 +198,12 @@ def paged_attention(
     kd = padded_dims(d, d)[0]
     q, k_pages, v_pages = (_pad(t, kd) for t in (q, k_pages, v_pages))
     out = torch.empty_like(q)
-    lib, split = _library()
+    meta = q.device.type == "meta"
+    lib, split = (None, SPLIT_TOKENS) if meta else _library()
     plan = split_plan(b, hq, hkv, kd, page, n_p, split)
     ws = _workspace(plan, q.device)
+    if meta:
+        return out if kd == d else out[..., :d].contiguous()
     err = lib.repro_paged_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
@@ -240,9 +248,12 @@ def paged_attention_quant(
     kd = padded_dims(d, d)[0]
     q, k_pages, v_pages = (_pad(t, kd) for t in (q, k_pages, v_pages))
     out = torch.empty_like(q)
-    lib, split = _library()
+    meta = q.device.type == "meta"
+    lib, split = (None, SPLIT_TOKENS) if meta else _library()
     plan = split_plan(b, hq, hkv, kd, page, n_p, split)
     ws = _workspace(plan, q.device)
+    if meta:
+        return out if kd == d else out[..., :d].contiguous()
     err = lib.repro_paged_attention_quant(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         k_scales.data_ptr(), v_pages.data_ptr(), v_scales.data_ptr(),

@@ -36,9 +36,12 @@ are assembled from the tiles' blocks.
 :func:`wkv6` is the differentiable entry point (``torch.autograd.Function``);
 :func:`wkv6_fwd` and :func:`wkv6_bwd` launch the kernels and count their
 wrapper calls in ``.launches`` (CUDA launches per call:
-:data:`CUDA_LAUNCHES`).  They take CUDA tensors only; the plain version is
-:func:`repro_torch.kernels.ops.wkv6_chunked`, and
-:mod:`repro_torch.kernels.ops` picks between the two by device.
+:data:`CUDA_LAUNCHES`).  They take CUDA tensors, or meta tensors for the
+kernels' shape rule (the same checks and allocations, no launch and no
+count); the plain version is :func:`repro_torch.kernels.ops.wkv6_chunked`,
+and :mod:`repro_torch.kernels.ops` picks between the two by device.  Each
+call of :func:`wkv6` and each backward reports its work
+(:mod:`repro_torch.kernels.work`) to an active dry-run counter.
 """
 
 from __future__ import annotations
@@ -47,7 +50,7 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, work
 from repro_torch.kernels._tiles import block, check_ckpts, cols, fsum, put_block
 
 CHUNK = 64          # tokens per chunk; the state-save interval (kChunk in wkv6.cu)
@@ -95,7 +98,7 @@ def _stream(x: torch.Tensor) -> int:
 def _check(r, k, v, w, u, state) -> None:
     """Raise on anything the kernels do not take."""
     for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
-        if t.device.type != "cuda" or t.device != r.device:
+        if t.device.type not in _build.KERNEL_DEVICES or t.device != r.device:
             raise ValueError(f"the WKV6 kernel takes CUDA tensors on one device; "
                              f"{name} is on {t.device} (ops.wkv6_chunked is the "
                              "plain version)")
@@ -166,6 +169,8 @@ def _fwd1(r, k, v, w, u, state, save):
     s_out = torch.empty((b, h, d, d), dtype=torch.float32, device=r.device)
     ckpt = (torch.empty((b, h, -(-t // CHUNK), d, d), dtype=torch.float32,
                         device=r.device) if save else None)
+    if r.device.type == "meta":
+        return y, s_out, ckpt
     lib = _build.library("wkv6")
     err = lib.repro_wkv6_fwd(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -243,6 +248,8 @@ def _bwd1(r, k, v, w, u, ckpt, dy, dstate):
     gsave = torch.empty_like(ckpt)   # the state gradient at every chunk's end
     eltot = torch.empty((b, h, -(-t // CHUNK), d), dtype=torch.float32,
                         device=r.device)
+    if r.device.type == "meta":
+        return dr, dk, dv, dw, du, ds0
     lib = _build.library("wkv6")
     err = lib.repro_wkv6_bwd(
         _DTYPE_CODE[r.dtype], r.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -274,8 +281,12 @@ class _WKV6(torch.autograd.Function):
         r, k, v, w, u, *ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(r)
-        dr, dk, dv, dw, du, ds0 = wkv6_bwd(
-            r, k, v, w, u, tuple(ckpt), dy.contiguous(), None if dstate is None else dstate.contiguous())
+        dr, dk, dv, dw, du, ds0 = work.counted(
+            "wkv6_bwd",
+            lambda: work.wkv6_bwd(*r.shape, r.element_size(),
+                                  dstate is not None, ctx.needs_input_grad[5]),
+            wkv6_bwd, r, k, v, w, u, tuple(ckpt), dy.contiguous(),
+            None if dstate is None else dstate.contiguous())
         return dr, dk, dv, dw, du, ds0 if ctx.needs_input_grad[5] else None
 
 
@@ -284,7 +295,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """WKV6 through the CUDA kernels: ``(y, final state)``, differentiable
     in r, k, v, w, u and the initial state, through y and the final state.
-    Without a gradient to track, the forward alone, saving nothing."""
+    Without a gradient to track, the forward alone, saving nothing.  Each
+    call reports its work to an active dry-run counter."""
+    return work.counted(
+        "wkv6_fwd",
+        lambda: work.wkv6_fwd(*r.shape, r.element_size(), state is not None),
+        _wkv6, r, k, v, w, u, state)
+
+
+def _wkv6(r, k, v, w, u, state):
     ins = (r, k, v, w, u) + (() if state is None else (state,))
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         if state is None:

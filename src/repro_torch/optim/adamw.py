@@ -42,15 +42,17 @@ def tree_leaves(tree: Any) -> List[torch.Tensor]:
 
 
 def tree_unflatten(like: Any, leaves) -> Any:
-    """Inverse of :func:`tree_leaves` over the structure of ``like``."""
-    it = iter(leaves)
+    """Inverse of :func:`tree_leaves` over the structure of ``like``.  No
+    reference cycle holds ``leaves`` afterwards (a recursive closure
+    would, until the garbage collector ran: a gradient tree's memory
+    outliving the tree)."""
+    return _build(like, iter(leaves))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _build(node: Any, it) -> Any:
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def adamw_init(params: Any) -> Dict[str, Any]:
