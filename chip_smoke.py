@@ -49,7 +49,7 @@ check:
    plain versions: the tokens must be identical (a difference where the
    plain path's top two logits tie within the float32 bound is reported
    as a tie);
-5. the first 4 phase-2 requests over an int8 pool through the int8
+5. the first 2 phase-2 requests over an int8 pool through the int8
    kernel (16 new tokens a request), with token agreement against phase 2
    reported;
 6. the flash-attention kernels (forward, and backward through autograd)
@@ -81,10 +81,11 @@ check:
    uninterrupted run's (the same steps without checkpoints, as phases
    11-12 run theirs); step ms, checkpoint bytes and seconds, restore
    seconds, peak device memory and free disk reported;
-9. the phase-8 state checkpointed with NAM_XOR, node 3 killed and the
-   state restored byte-identically; each XOR group's fragments stacked on
-   the card and reduced through the XOR kernel equal the NAM parity the
-   SCR stored; the kernel timed at that shape;
+9. the phase-8 parameters checkpointed with NAM_XOR, node 3 killed and
+   the parameters restored byte-identically; each XOR group's fragments
+   stacked on the card and reduced through the XOR kernel equal the NAM
+   parity the SCR stored; the kernel timed at that shape (the whole
+   state with AdamW's moments, three times the bytes, was cut for time);
 10. the WKV6 and SSD scan kernels (forward, and backward through
    autograd) against their plain versions at rwkv6-3b's training shape
    (B 4, T 512, 40 heads of 64) and zamba2-2.7b's (80 heads, P = N = 64)
@@ -125,12 +126,12 @@ check:
    cluster, checkpointed once a stream is spilled and a prefix page is
    bound in the pool, the stack closed, node 1 failed and recovered, a
    fresh stack restored (pool SHA-256, allocator, pager tables and trie
-   equal to the saved) and finished with (a)'s tokens; (d) the
-   contiguous scheduler (2 slots, quantum 2, 3 requests, 4 new tokens,
-   full depth) with pager and prefix cache, uninterrupted and through
-   the same kill and restore: the same tokens, parks and resumes through
-   the pager, no paged launch, one plain decode attention call per
-   layer per slot per step and per prefill token;
+   equal to the saved) and finished with (a)'s tokens (phi3's contiguous
+   scheduler through a kill and restore, formerly (d), was cut for time:
+   phases 15 (d) and 16 (e) serve the contiguous scheduler's slice mode,
+   whose lanes are attention caches, through a save, a node kill and a
+   restore at full depth, and phase 22 (a), (b) its snapshot mode, whose
+   lanes are whole recurrent states);
 14. minicpm3-4b (MLA: qk heads of 96, v heads of 64): (a) the flash
    kernels with V of its own width against their plain version, forward
    and backward, f32 and bf16, the f32 gradients also against float64,
@@ -245,11 +246,13 @@ check:
    steps at published width and depth 1, B 4 x T 512, against the same
    steps in one process on the whole batch (loss and aux within 1%,
    parameters within 2 lr a step), first over (data 1 x model 2) twice
-   (one SHA-256 of each rank's parameters), then over (data 2 x model 1)
-   (two whole AdamW states and the single-process parameters do not fit
-   one card together, so this run is held by its losses and aux); flash
-   launches 2 forward and 3 backward per layer per step, no plain call;
-   (d) xPic (``examples/xpic_offload.py``) at 2^24 particles on a 4,096-
+   (one SHA-256 of each rank's parameters), then the first step over
+   (data 2 x model 1) (two whole AdamW states and the single-process
+   parameters do not fit one card together, so this run is held by its
+   loss and aux); flash launches 2 forward and 3 backward per layer per
+   step, no plain call;
+   (d) xPic (``examples/xpic_offload.py``, in the port
+   ``examples/torch_xpic_offload.py``) at 2^24 particles on a 4,096-
    cell grid for 8 steps: the field solve on the Cluster (rank 0, CPU),
    the particle push offloaded to the Booster (rank 1, the card; the
    device is asserted inside the push) under ``TaskRuntime.run`` with a
@@ -275,7 +278,42 @@ check:
    fused_gate_up=1 --set capacity_factor=2.0``: ``model_flops`` equal to
    6·N·T·B, the variant in the record and the config, the parameter
    leaves and bytes those of the layout built (MoE's gate and up in one
-   ``w_in`` leaf), and an unknown key refused by name.
+   ``w_in`` leaf), and an unknown key refused by name;
+21. the dry run's count on the card: one training step of phi3 and
+   rwkv6-3b at published width and 1 layer against ``lower_cell`` on the
+   meta device (FLOPs, bytes, kernel calls and launches, peak memory),
+   and a full-depth phi3 decode step's memory;
+22. the port's examples (``examples/torch_*.py``, loaded by path and run
+   through their ``main``): (a) rwkv6-3b (32 layers) and (b) zamba2-2.7b
+   (54 layers) served at published width through ``torch_serve.py
+   --full-size`` (6 streams sharing a 9-token prompt, 2 slots, quantum 3,
+   6 new tokens, saved after 8 steps, a node killed, restored; the
+   contiguous scheduler's snapshot mode, whose lanes are whole recurrent
+   states): the example's own assert (the restored tokens equal the
+   uninterrupted run's), the reference example's counts (36 tokens, 6
+   parks, 6 resumes, max 6 resident, 5 prefix hits, 40 prefill tokens
+   saved, 43 computed, 4 parked at the save); tok/s, parks, resumes, the
+   save's commit and the restore from the example's trace; then a stack
+   from the config it served, its lanes and parameters on the card, and
+   its batch-1 slot-step by CUDA events beside its weight-read bound; (c)
+   both at published width and full depth with float32 compute:
+   ``decode_step`` token by token over B 2 x T 128 against one
+   ``forward`` through the WKV6 kernel (rwkv6) or the SSD and flash
+   kernels (zamba2), and each against a float64 forward, at every
+   position within 1e-4 relative logit error; where the float32 noise
+   (the plain float32 forward's distance to the float64 one) passes 1e-4
+   (rwkv6-3b's stack amplifies float32 rounding to ~1e-2 at 32 layers),
+   each float32 evaluation within 8 times its position's noise from the
+   float64 forward and the chain within twice that of the kernel
+   forward; rwkv6-3b's decode chain also in
+   float64 against the float64 forward within 1e-9; one scan launch per
+   layer and one flash launch per group, no plain scan or attention; (d)
+   ``torch_quickstart.py``, ``torch_fault_tolerant_train.py --steps
+   30``, ``torch_xpic_offload.py`` and ``torch_serve.py --workers 2
+   --arch phi3-mini-3.8b`` on the card: their counterparts' OK lines and
+   counts, flash launches of 2 forward and 3 backward per layer per step
+   run, each fleet worker's paged
+   launches = layers x token iterations.
 
 Phase 10 also runs the repair cases: the scans' gradient through the
 final state (a loss on y and on the final state) at 64-wide shapes, WKV6
@@ -287,8 +325,9 @@ tensor cores, f32 on the CUDA cores), (264, 264), (300, 300), (320, 320),
 (512, 512), absorbed MLA's (576, 512) and its MQA prefill (B 1 x T 1024,
 16 query heads over 1; bf16 there against the plain version in float64),
 each f32 and bf16 against the plain version (f32 gradients also against
-float64), twice bit-identical, with bf16 times beside every SDPA form that
-takes the call (and those that refuse it, named); the wide kernels with
+float64), twice bit-identical, past 256 with bf16 times beside every SDPA
+form that takes the call (and those that refuse it, named; the narrower
+widths' times were cut for time); the wide kernels with
 the prefix-LM mask, Tq < Tk and non-causal Tq > Tk (REPAIR_FLASH_MASKS);
 and both paged kernels (plain
 and int8 pools, f32 and bf16, the multi-token folds) at D 100 (padded to
@@ -299,9 +338,9 @@ dimensions y and z (every launcher folds its blocks into grid x): B
 65,600 x T 16 x 1 head of D 64, and Hq 32,768 over Hkv 16,384 at (512,
 512), B 1 x T 16 (65,536 forward and 65,536 dK/dV slice blocks), forward
 and backward, bf16 against the plain version and f32 against float64.
-For time, phase 5 runs 4 requests of 16
-new tokens (8 of 32 before), phase 13 6 requests of 6 new tokens in (a)
-to (c) (8 of 32 before) and 3 requests in (d) (4 before), and phase 17
+For time, phase 5 runs 2 requests of 16
+new tokens (8 of 32, then 4 of 16 before), phase 13 6 requests of 6 new tokens in (a)
+to (c) (8 of 32 before) and no contiguous run (d), and phase 17
 two scaling batches (five before) and fig13's streams to 16 new tokens
 (64 before); phase 8's uninterrupted run takes its steps without
 checkpoints (two and a restore before) and phase 14 (e) serves 4
@@ -309,7 +348,11 @@ requests of 4 new tokens (8 of 8 before); phases 8 (and so 9 and 18),
 11, 14 and 16 (c) train at 1 layer (2 before), and phases 11, 12 and 14
 (d) train twice without checkpoints (through a node kill before: two
 checkpoint commits and a restore of 3-6 GB each; the node kill stays in
-phases 8 and 16 (d)).
+phases 8 and 16 (d)).  To make room for phase 22, phase 13 runs no
+contiguous (d) (phases 15 (d) and 16 (e) keep the contiguous
+scheduler's kill and restore), phase 9 checkpoints and restores the
+parameters alone (the whole state before), and phase 19 (c) takes one
+step over (data 2 x model 1) (three before).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA card, or without the
@@ -323,6 +366,8 @@ import dataclasses
 import functools
 import gc
 import hashlib
+import importlib.util
+import io
 import itertools
 import json
 import os
@@ -366,6 +411,7 @@ from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.configs.shapes import ShapeSpec, get_shape  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.models.registry import get_model  # noqa: E402
+from repro_torch.obs.trace import Tracer, set_default_tracer  # noqa: E402
 from repro_torch.core.tasks import TaskError, TaskRuntime, _snapshot  # noqa: E402
 from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.memory.tiers import MemoryTier, TierKind, TierSpec  # noqa: E402
@@ -393,7 +439,7 @@ DEVICE = "cuda"
 SERVE = dict(arch="phi3-mini-3.8b", full_size=True, prefix=False, slots=4,
              max_len=256, page_tokens=16, quantum=4, device=DEVICE)
 N_REQUESTS, MAX_NEW = 8, 32
-INT8_REQUESTS, INT8_MAX_NEW = 4, 16   # phase 5 (8 of 32 before a cut for time)
+INT8_REQUESTS, INT8_MAX_NEW = 2, 16   # phase 5 (8 of 32, then 4, before cuts for time)
 FLASH_F32_TOL = dict(atol=3e-6, rtol=1e-5)   # tests/test_kernels.py:35-73
 FLASH_BF16_TOL = dict(atol=3e-2, rtol=3e-2)
 # float32 gradients sum up to g * T = 9 * 512 products per element; the
@@ -719,7 +765,9 @@ def sdpa_ms(q, k_layers, v_layers, table, lengths, traces=5) -> tuple:
     heads shared through ``enable_gqa`` where the backend takes it and
     repeated to every query head where not; returns the fastest that takes
     the boolean mask by device time, as (:class:`DeviceTime`,
-    "sdpa/<backend>", eager ms)."""
+    "sdpa/<backend>", eager ms).  A form is traced once, and ``traces``
+    times (with its eager time) only while within 1.5x of the fastest so
+    far: the slow forms (the math backend) are not traced again."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
     F = torch.nn.functional
     n = k_layers.shape[1]
@@ -751,12 +799,19 @@ def sdpa_ms(q, k_layers, v_layers, table, lengths, traces=5) -> tuple:
                 with sdpa_kernel(backend):
                     call()
                     torch.cuda.synchronize()
-                    dev = device_time(call, traces=traces)
-                    eager = time_ms(call)
+                    dev = device_time(call, traces=1)
+                    contender = best[0] is None or dev.ms < 1.5 * best[0].ms
+                    if contender:
+                        dev = device_time(call, traces=traces)
+                        eager = time_ms(call)
             except RuntimeError:
                 continue          # this backend does not take these inputs
             name = f"sdpa/{backend.name.lower().replace('_attention', '')}"
             name += "" if g == 1 else ("+repeated_kv" if repeat else "+gqa")
+            if not contender:
+                say(f"    {name}: {dev.ms:.5f} ms on the device (one trace; "
+                    f"over 1.5x the fastest)")
+                continue
             say(f"    {name}: {dev.ms:.5f} ms on the device (traces "
                 f"{', '.join(f'{x:.5f}' for x in dev.traces_ms)}), "
                 f"{eager:.5f} ms eager")
@@ -2123,7 +2178,9 @@ def phase10_repairs() -> dict:
             out[kind][label] = dict(scan_repair_ms(kind, shape), errors=errs)
             release()
     for label, shape in REPAIR_FLASH.items():
-        out["flash"][label] = repair_flash(label, shape)
+        # the widths up to 256 are checked, not timed (their times beside
+        # every SDPA form were cut for time: PERF.md keeps the last ones)
+        out["flash"][label] = repair_flash(label, shape, timed=shape[5] > 256)
         release()
     out["flash_masks"] = {
         label: repair_flash(label, shape[:7], *shape[7:], timed=False)
@@ -2509,9 +2566,11 @@ def phase8() -> tuple:
 
 
 def phase9(state) -> dict:
-    say("== phase 9: NAM_XOR checkpoint of the phase-8 state, node kill, "
-        "parity through the XOR kernel")
+    say("== phase 9: NAM_XOR checkpoint of the phase-8 parameters, node "
+        "kill, parity through the XOR kernel")
     step = TRAIN["steps"]
+    # the parameters alone (a third of the state with AdamW's moments)
+    state = state["params"]
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_nam_"))
     cluster = VirtualCluster(n_cluster=4, n_booster=4, root=tmp)
     try:
@@ -2969,15 +3028,11 @@ def phase_family(phase: int, arch: str, kernels: tuple, seq=None) -> dict:
 # phase 13: resilient serving of full-size phi3
 # ---------------------------------------------------------------------- #
 
-# 8 requests share a 48-token system prompt (3 pages of 16) and add 8-32
+# 6 requests share a 48-token system prompt (3 pages of 16) and add 8-32
 # tokens of their own; the resilient runs' pool of 80 pages holds five
-# lanes, so 8 streams over 4 slots must spill.  The contiguous run (d)
-# serves 4 of them over 2 slots at full depth.
-# (d)'s streams: 4 new tokens (cut from 8 for the script's time limit;
-# quantum 2 still parks every stream once)
+# lanes, so 6 streams over 4 slots must spill.
 RESILIENT = dict(system=48, own=(8, 32), pool_pages=80, fail_rank=1,
-                 requests=6, max_new=6, contig_requests=3, contig_slots=2,
-                 contig_quantum=2, contig_max_new=4)
+                 requests=6, max_new=6)
 
 
 def resilient_requests(vocab: int):
@@ -3165,14 +3220,6 @@ def phase13(kernels: dict) -> dict:
     runs["b"] = resilient_run("(b) resilient", resilient, prompts, max_new)
     runs["c"] = resilient_run("(c) kill and restore", resilient, prompts,
                               max_new, kill=True)
-    contig = ServeConfig(**dict(SERVE, paged=False, prefix=True,
-                                slots=RESILIENT["contig_slots"],
-                                quantum=RESILIENT["contig_quantum"]))
-    few = prompts[:RESILIENT["contig_requests"]]
-    runs["d"] = resilient_run("(d) contiguous", contig, few,
-                              RESILIENT["contig_max_new"])
-    runs["d_kill"] = resilient_run("(d) contiguous, kill and restore", contig,
-                                   few, RESILIENT["contig_max_new"], kill=True)
 
     failures = []
     for key in ("b", "c"):
@@ -3194,33 +3241,12 @@ def phase13(kernels: dict) -> dict:
                 f"({key}) {r['launches']} paged launches, want "
                 f"{r['n_layers']} layers x {r['iters']} token iterations, and "
                 f"{r['plain_calls']} plain decode attention calls, want 0")
-    d, dk = runs["d"], runs["d_kill"]
-    if dk["outs"] != d["outs"]:
-        failures.append("(d) tokens after the kill differ from the "
-                        "uninterrupted contiguous run's")
-    for tag, r in (("(d)", d), ("(d) kill", dk)):
-        t = r["total"]
-        want = r["n_layers"] * (RESILIENT["contig_slots"] * t["steps"]
-                                + t["prefill_tokens"])
-        if r["launches"] or r["plain_calls"] != want:
-            failures.append(f"{tag}: {r['launches']} paged launches (want 0) "
-                            f"and {r['plain_calls']} plain decode attention "
-                            f"calls (want {want})")
-        if t["parked"] <= 0 or t["resumed"] <= 0 or t["prefix_hits"] <= 0:
-            failures.append(f"{tag}: parked {t['parked']} resumed "
-                            f"{t['resumed']} prefix_hits {t['prefix_hits']}")
-    same_d = sum(a == b for x, y in zip(d["outs"], runs["a"]["outs"])
-                 for a, b in zip(x, y))
-    say(f"  (d) token agreement with (a) over their common tokens: {same_d} "
-        f"(contiguous plain attention against the paged kernel at bf16; "
-        f"reported, not gated)")
     seconds = time.perf_counter() - t_phase
     say(f"  phase 13 took {seconds:.1f} s")
     if failures:
         raise AssertionError("phase 13 gates failed:\n  "
                              + "\n  ".join(failures))
-    say("  (b) and (c) emitted (a)'s tokens; (d) after a kill and restore "
-        "emitted the uninterrupted contiguous run's")
+    say("  (b) and (c) emitted (a)'s tokens")
     for key in ("b", "c"):
         kernels["paged_attention"][f"launches_phase13_{key}"] = runs[key]["launches"]
     summary = {}
@@ -4894,15 +4920,20 @@ def p19_train(rank, data, model_n, params, batches, ref_params, runs):
 
 
 def xpic_field_solve(e_field, current):
-    """Cluster side (examples/xpic_offload.py): the field from the
-    deposited current (toy Maxwell)."""
+    """Cluster side: the field from the deposited current (toy Maxwell).
+    Its counterpart in the port's examples is
+    ``examples/torch_xpic_offload.py``'s ``field_solve`` (the reference's
+    is ``examples/xpic_offload.py``'s); this copy runs on a rank of a
+    Cluster-Booster split, which the example, one process, does not."""
     lap = torch.roll(e_field, 1) - 2 * e_field + torch.roll(e_field, -1)
     return e_field + 0.1 * (0.5 * lap - current)
 
 
 def xpic_particle_push(pos, vel, e_field):
     """Booster side: push the particles in the interpolated field and
-    deposit the current (index_put with accumulate: deterministic)."""
+    deposit the current (index_put with accumulate: deterministic), as
+    ``examples/torch_xpic_offload.py``'s ``particle_push`` does, with the
+    grid and particle counts taken from the inputs."""
     if pos.device.type != torch.device(DEVICE).type:
         raise AssertionError(f"the particle push ran on {pos.device}")
     grid, n = e_field.shape[0], pos.shape[0]
@@ -5136,7 +5167,10 @@ def p19_moe_train(world, failures) -> dict:
         f"{P19['train_seq']}): losses {losses}, router aux {auxes}")
     out = {"single": {"losses": losses, "aux": auxes}}
     tol_p = 2 * P19["lr"] * P19["train_steps"]
-    for data, model_n, runs in ((1, P19_RANKS, 2), (P19_RANKS, 1, 1)):
+    # (data 2 x model 1) takes the first step only: its gloo exchange of
+    # the whole gradient is ~10 s a step
+    for data, model_n, runs, steps in ((1, P19_RANKS, 2, P19["train_steps"]),
+                                       (P19_RANKS, 1, 1, 1)):
         tag = f"(c) train data {data} x model {model_n}"
         if data > 1:
             # each rank holds the whole AdamW state: no room for the
@@ -5144,7 +5178,7 @@ def p19_moe_train(world, failures) -> dict:
             ref_params = None
             release()
         recs = world.run("train", data=data, model_n=model_n,
-                         params=init_params, batches=batches,
+                         params=init_params, batches=batches[:steps],
                          ref_params=ref_params, runs=runs)
         for r in recs:
             for i, run in enumerate(r["runs"]):
@@ -5167,7 +5201,6 @@ def p19_moe_train(world, failures) -> dict:
                     failures.append(f"{tag} rank {r['rank']}: params "
                                     f"{run['param_max_abs_diff']:.3e} from "
                                     "the single-process run")
-                steps = P19["train_steps"]
                 if (run["fwd"] != 2 * cfg.n_layers * steps
                         or run["bwd"] != 3 * cfg.n_layers * steps
                         or run["plain"]):
@@ -5232,7 +5265,8 @@ def phase19() -> dict:
         del params, tokens, logits
         release()
         say(f"  (c) {arch} at depth 1, {P19['train_steps']} AdamW steps: data "
-            f"1 x model {P19_RANKS} twice, then data {P19_RANKS} x model 1")
+            f"1 x model {P19_RANKS} twice, then the first over data "
+            f"{P19_RANKS} x model 1")
         out["c"]["train"] = p19_moe_train(world, failures)
         out["c"]["seconds"] = time.perf_counter() - t1
         say(f"    (c: {out['c']['seconds']:.1f} s)")
@@ -5724,6 +5758,457 @@ def phase21(smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- #
+# phase 22: the port's examples (examples/torch_*.py) on the card
+# ---------------------------------------------------------------------- #
+
+EXAMPLES = ROOT / "examples"
+# (a), (b): the serve example's local flow at published width and depth
+# (``--full-size`` pages a 21.3 MB rwkv6-3b or 75.4 MB zamba2-2.7b lane in
+# 1 MiB pages)
+# (c): the float32 decode chain over B 2 x T 128 (two 64-token chunks of
+# the scan kernels) against one forward through the kernels, and each of
+# them against a float64 forward, at every position within the relative
+# logit error of tests/test_torch_family_parity.py's LOGIT_TOL (rtol) or,
+# where float32 itself cannot meet that at this depth, each float32
+# evaluation within ``noise_x`` times that position's float32 noise (the
+# plain float32 forward's distance to the float64 one: rwkv6-3b's 32
+# random layers amplify float32 rounding to ~1e-2) from the float64
+# forward, and the chain within twice that of the kernel forward; for
+# ``chain64`` also the decode chain in
+# float64 against the float64 forward at ``chain64_rel``, float64
+# rounding through the same depth: the test of ``decode_step`` itself
+# (d): the examples at their own sizes; ``argv`` is added to every
+# example's command line (empty: each runs on the card, its default)
+P22 = dict(serve=("rwkv6-3b", "zamba2-2.7b"), serve_argv=("--full-size",),
+           chain=(2, 128), chain_rel=1e-4, noise_x=8,
+           chain64=("rwkv6-3b",), chain64_rel=1e-9, ft_steps=30,
+           fleet=("--workers", "2", "--arch", "phi3-mini-3.8b"), argv=())
+# the reference examples' counts at the same settings (their runs on the
+# CPU: examples/serve.py --arch rwkv6-3b and --arch zamba2-2.7b,
+# examples/quickstart.py, examples/fault_tolerant_train.py --steps 30,
+# examples/xpic_offload.py); they follow from the schedule and the
+# prompts, not from the widths or the weights
+P22_SERVE_COUNTS = dict(tokens=36, parked=6, resumed=6, max_resident=6,
+                        prefix_hits=5, prefill_tokens_saved=40,
+                        prefill_tokens=43, parked_at_save=4)
+P22_TRAIN_COUNTS = {
+    "torch_quickstart": dict(steps_run=37, failures=1, recoveries=1,
+                             restarts_from_step=[10], checkpoints=3,
+                             drains_completed=3),
+    "torch_fault_tolerant_train": dict(steps_run=40, failures=2, recoveries=2,
+                                       restarts_from_step=[0, 20],
+                                       checkpoints=2)}
+P22_XPIC_COUNTS = dict(launched=18, retried=2, replayed=0, failed=0,
+                       replayed_after_crash=1)
+# the OK lines of each example's counterpart
+P22_OK = {
+    "torch_quickstart": [
+        "OK: failure survived, training resumed from the buddy copy."],
+    "torch_fault_tolerant_train": [
+        "OK: two node losses survived via NAM-XOR parity reconstruction."],
+    "torch_xpic_offload": [
+        "OK: offloaded particle task survived a Booster failure without "
+        "global rollback.",
+        "OK: persistent journal fast-forwards recomputation after a crash."],
+    "torch_serve": [
+        "OK: killed mid-decode with 4 streams parked + a node loss; restored "
+        "scheduler finished every stream byte-identically."],
+    "torch_serve --workers": [
+        "OK: cross-process prefix sharing through one cache domain."]}
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (its ``main`` does not run)."""
+    spec = importlib.util.spec_from_file_location(f"example_{name}",
+                                                  EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list) -> tuple:
+    """``main(argv)`` of ``examples/<name>.py`` in this process, its
+    output captured and echoed: (the module, what ``main`` returned, the
+    printed lines).  A failing example raises; the printed OK lines must
+    be its counterpart's."""
+    mod = load_example(name)
+    argv = list(argv) + list(P22["argv"])
+    say(f"  $ python examples/{name}.py {' '.join(argv)}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ret = mod.main(argv)
+    finally:
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            say(f"  | {line}")
+    say(f"  ({time.perf_counter() - t0:.1f} s)")
+    want = P22_OK[name + (" --workers" if "--workers" in argv else "")]
+    ok = [line for line in lines if line.startswith("OK:")]
+    if ok != want:
+        raise AssertionError(f"examples/{name}.py printed {ok}, want {want}")
+    return mod, ret, lines
+
+
+@contextlib.contextmanager
+def serve_trace():
+    """While in effect, a fresh process-default tracer: the schedulers
+    and sessions built meanwhile take it at construction, so it holds
+    their spans (``step``, ``park``, ``resume``, ``ckpt_txn``,
+    ``restore``) and ``submit`` events.  Yields it."""
+    tracer = Tracer(capacity=1 << 16)
+    prev = set_default_tracer(tracer)
+    try:
+        yield tracer
+    finally:
+        set_default_tracer(prev)
+
+
+def serve_runs(records, streams: int) -> list:
+    """The serve example's three runs from its trace: the uninterrupted
+    run (before the second stack's first ``submit``), the run up to the
+    save (before ``ckpt_txn``) and the restored run (after ``restore``);
+    each as steps, tokens and the host seconds of its ``step`` spans
+    (admission, prefill, parks and the decode, tokens read back)."""
+    ts = lambda name: [x["ts"] for x in records if x["name"] == name]
+    bounds = [0.0, ts("submit")[streams], ts("ckpt_txn")[0], ts("restore")[0],
+              float("inf")]
+    runs = []
+    for lo, hi in ((bounds[0], bounds[1]), (bounds[1], bounds[2]),
+                   (bounds[3], bounds[4])):
+        steps = [x for x in records
+                 if x["name"] == "step" and lo <= x["ts"] < hi]
+        runs.append({"steps": len(steps),
+                     "tokens": sum(x["args"].get("emitted", 0) for x in steps),
+                     "wall_s": sum(x["dur"] for x in steps)})
+    return runs
+
+
+def slot_step_ms(arch, model, params) -> dict:
+    """One batch-1 ``decode_step`` as the contiguous scheduler runs it
+    per slot: CUDA events over calls queued behind a sleep (the host's
+    launch rate shows in them: a step launches more kernels than the
+    card's queue holds) and the host clock, beside the least time to read
+    the weights it reads (every leaf, the embedding table but one row;
+    zamba2's shared block once per group)."""
+    lane = model.init_cache(arch, 1, 32, device=DEVICE)
+    tok = torch.tensor([1], device=DEVICE)
+    leaf = lambda t: t.numel() * t.element_size()
+    nbytes = sum(leaf(x) for x in tree_leaves(params))
+    nbytes += leaf(params["embed"][0]) - leaf(params["embed"])
+    if arch.attn_every:
+        groups = arch.n_layers // arch.attn_every
+        nbytes += (groups - 1) * sum(leaf(x) for x in tree_leaves(params["shared"]))
+    step = lambda: model.decode_step(params, lane, tok, 5, arch)
+    with torch.inference_mode():
+        events = time_ms(step, iters=5, warmup=1, max_sleep_s=5.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        host = 1e3 * (time.perf_counter() - t0) / 3
+    return {"events_ms": events, "host_ms": host, "weight_bytes": nbytes,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S}
+
+
+def p22_serve(arch: str, failures: list) -> dict:
+    """(a), (b): ``examples/torch_serve.py --arch <arch> --full-size`` on
+    the card through its ``main``, its counts held to the reference
+    example's and its parks, resumes, save and restore read from its
+    trace; then a stack built from the config it served takes two steps,
+    its lanes and parameters are held to the card, and one slot-step of
+    its weights is timed."""
+    release()
+    torch.cuda.reset_peak_memory_stats()
+    argv = ["--arch", arch, *P22["serve_argv"]]
+    with serve_trace() as tracer:
+        t0 = time.perf_counter()
+        _, r, _ = run_example("torch_serve", argv)
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    got = {k: r[k] for k in P22_SERVE_COUNTS}
+    if got != P22_SERVE_COUNTS:
+        failures.append(f"({arch}) counts {got}, want the reference "
+                        f"example's {P22_SERVE_COUNTS}")
+    records = tracer.records()
+    runs = serve_runs(records, r["streams"])
+    spans = lambda name: [round(x["dur"], 6) for x in records
+                          if x["name"] == name]
+    cfg = r["cfg"]
+    srv = Serve.local(cfg)
+    try:
+        srv.submit(list(range(1, 13)), max_new=2)
+        srv.run(max_steps=2)
+        sched = srv.scheduler
+        n_off = sum(t.device.type != "cuda" for t in tree_leaves(sched.params))
+        off = [f"lane {k}" for k, v in sched.slots_cache.items()
+               if v.device.type != "cuda"]
+        off += [f"{n_off} parameter leaves"] if n_off else []
+        if off:
+            failures.append(f"({arch}) off the card: {off}")
+        if srv.arch.n_layers != get_config(arch).n_layers:
+            failures.append(f"({arch}) served {srv.arch.n_layers} layers")
+        lane = srv.model.init_cache(srv.arch, 1, cfg.max_len, device="meta")
+        lane_bytes = sum(v.numel() * v.element_size() for v in lane.values())
+        slot = slot_step_ms(srv.arch, srv.model, sched.params)
+    finally:
+        srv.close()
+        del srv
+    first = runs[0]
+    save = [{"s": round(x["dur"], 6), "bytes": x["args"]["bytes"],
+             "step": x["args"]["step"]}
+            for x in records if x["name"] == "ckpt_txn"]
+    out = {"counts": got, "wall_s": wall,
+           "tok_per_s": first["tokens"] / first["wall_s"],
+           "uninterrupted": first, "runs": runs, "slot_step": slot,
+           "lane_bytes": lane_bytes, "park_s": spans("park"),
+           "resume_s": spans("resume"), "save": save,
+           "restore_s": spans("restore"), "page_bytes": cfg.page_bytes,
+           "peak_gib": peak / 2**30, "argv": argv,
+           "layers": get_config(arch).n_layers}
+    say(f"  ({arch}) {first['tokens']} tokens in {first['wall_s']:.3f} s "
+        f"uninterrupted = {out['tok_per_s']:.3f} tok/s; one slot-step "
+        f"{slot['events_ms']:.3f} ms by CUDA events ({slot['host_ms']:.3f} ms "
+        f"on the host clock) against the {slot['bound_ms']:.3f} ms weight-read "
+        f"bound ({slot['weight_bytes']} bytes); parks of a {lane_bytes}-byte "
+        f"lane {out['park_s']} s, resumes {out['resume_s']} s; save (commit) "
+        f"{save}; restore {out['restore_s']} s; peak {out['peak_gib']:.3f} "
+        f"GiB; lanes and parameters on the card: {not off}")
+    release()
+    return out
+
+
+def rel_per_position(got, want, vocab):
+    """max |got - want| / max |want| at each position of (B, T, V)
+    logits, over the batch and the logical vocabulary, in float64."""
+    got, want = got[..., :vocab].double(), want[..., :vocab].double()
+    return ((got - want).abs().amax(dim=(0, 2))
+            / want.abs().amax(dim=(0, 2))).cpu()
+
+
+def decode_chain(model, params, cfg, tokens, v) -> tuple:
+    """``decode_step`` token by token over (B, T) tokens from a fresh
+    cache in ``cfg``'s compute dtype: the (B, T, v) logits and ms a
+    token."""
+    b, t = tokens.shape
+    cache = model.init_cache(cfg, b, t, device=DEVICE)
+    steps = []
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        for i in range(t):
+            logits, cache = model.decode_step(params, cache, tokens[:, i], i, cfg)
+            steps.append(logits[:, :v])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0) / t
+    return torch.stack(steps, dim=1), ms
+
+
+def p22_chain(arch: str, failures: list) -> dict:
+    """(c): at published width and full depth with float32 compute, the
+    decode chain token by token over B x T against one forward through
+    the scan kernels (and zamba2's shared block through flash), and the
+    forward's launches (one scan per Mamba or RWKV layer, one flash per
+    group, no plain scan or attention).  At every position the relative
+    logit error of the chain against the kernel forward, and of each
+    against a float64 forward of the same weights on the plain path, is
+    held to 1e-4.  Where float32 itself cannot meet that at this depth
+    (the plain float32 forward, the float32 noise, lies past 1e-4 from
+    the float64 one at some position), each float32 evaluation is held
+    instead to ``P22["noise_x"]`` times that position's noise from the
+    float64 forward, and the chain to the kernel forward to the sum of
+    the two allowances (the triangle inequality).  For
+    ``P22["chain64"]`` the decode chain also runs in float64 (every
+    float32 island, its WKV state too, in float64) and is held to the
+    float64 forward at ``P22["chain64_rel"]``."""
+    t_part = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    cfg64 = dataclasses.replace(cfg, compute_dtype="float64")
+    model = get_model(cfg)
+    params = model.init(SEED + 22, cfg, device=DEVICE)
+    b, t = P22["chain"]
+    rng = np.random.default_rng(SEED + 22)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, t),
+                                           dtype=np.int32)).to(DEVICE)
+    v = cfg.vocab_size
+    batch = {"tokens": tokens}
+    torch.cuda.synchronize()
+    reset_family_launches()
+    with torch.inference_mode(), counting_calls(PLAIN_SCANS) as plain:
+        t0 = time.perf_counter()
+        fwd, _ = model.forward(params, batch, cfg, remat=False)
+        torch.cuda.synchronize()
+        fwd_ms = 1e3 * (time.perf_counter() - t0)
+    launches = family_launches()
+    with torch.inference_mode(), plain_kernels():
+        plain32, _ = model.forward(params, batch, cfg, remat=False)
+        plain64, _ = model.forward(params, batch, cfg64, remat=False)
+    chain, chain_ms = decode_chain(model, params, cfg, tokens, v)
+    rel = {"chain_vs_kernel": rel_per_position(chain, fwd, v),
+           "kernel_vs_f64": rel_per_position(fwd, plain64, v),
+           "chain_vs_f64": rel_per_position(chain, plain64, v),
+           "plain_f32_vs_f64": rel_per_position(plain32, plain64, v)}
+    noise = rel["plain_f32_vs_f64"]
+    # where the float32 noise itself is past 1e-4 somewhere, each float32
+    # evaluation gets noise_x times its position's noise from float64,
+    # and two of them may lie the sum of their allowances apart
+    noisy = bool((noise > P22["chain_rel"]).any())
+    each = (torch.clamp(P22["noise_x"] * noise, min=P22["chain_rel"]) if noisy
+            else torch.full_like(noise, P22["chain_rel"]))
+    limits = {"chain_vs_kernel": 2 * each if noisy else each,
+              "kernel_vs_f64": each, "chain_vs_f64": each}
+    over = {k: [int(i) for i in torch.nonzero(~(rel[k] <= lim))]
+            for k, lim in limits.items()}
+    over = {k: x for k, x in over.items() if x}
+    worst = {k: r.max().item() for k, r in rel.items()}
+    share = {k: (rel[k] / lim).max().item() for k, lim in limits.items()}
+    at = int(rel["chain_vs_kernel"].argmax())
+    finite = all(bool(torch.isfinite(x).all()) for x in (fwd, chain, plain64))
+    f64 = None
+    if arch in P22["chain64"]:
+        chain64, chain64_ms = decode_chain(model, params, cfg64, tokens, v)
+        r64 = rel_per_position(chain64, plain64, v)
+        f64 = {"rel_max": r64.max().item(), "at_position": int(r64.argmax()),
+               "limit": P22["chain64_rel"], "decode_ms_per_token": chain64_ms,
+               "rel": [float(x) for x in r64]}
+        say(f"  ({arch} chain, float64) decode chain vs float64 forward: max "
+            f"{f64['rel_max']:.3e} at position {f64['at_position']} (limit "
+            f"{f64['limit']:.0e}), {chain64_ms:.2f} ms a token")
+        if not f64["rel_max"] <= P22["chain64_rel"]:
+            failures.append(f"({arch} chain) the float64 decode chain lies "
+                            f"{f64['rel_max']:.3e} from the float64 forward "
+                            f"(limit {P22['chain64_rel']:.0e})")
+        del chain64
+    groups = cfg.n_layers // cfg.attn_every if cfg.attn_every else 0
+    want_launches = ({"mamba2_ssd_fwd": cfg.n_layers, "flash_attention_fwd": groups}
+                     if cfg.attn_every else {"wkv6_fwd": cfg.n_layers})
+    got_launches = {k: launches[k] for k in want_launches}
+    r = rel["chain_vs_kernel"]
+    say(f"  ({arch} chain) {cfg.n_layers} layers at float32, B {b} x T {t}: "
+        f"forward {fwd_ms:.1f} ms, decode {chain_ms:.2f} ms a token; relative "
+        f"logit error, decode chain vs kernel forward: max {worst['chain_vs_kernel']:.3e} "
+        f"at position {at}, first / second / last {r[0].item():.3e} / "
+        f"{r[1].item():.3e} / {r[-1].item():.3e}; against a float64 forward: "
+        f"kernel {worst['kernel_vs_f64']:.3e}, decode chain "
+        f"{worst['chain_vs_f64']:.3e}, plain float32 forward {worst['plain_f32_vs_f64']:.3e} "
+        f"(the float32 noise; at the first / second / last position "
+        f"{noise[0].item():.3e} / {noise[1].item():.3e} / {noise[-1].item():.3e}); "
+        + (f"limit at each position max({P22['chain_rel']:.0e}, {P22['noise_x']} "
+           f"x noise), twice that between the chain and the kernel forward"
+           if noisy else f"limit {P22['chain_rel']:.0e} at every position")
+        + f", the largest share of it taken {share}; "
+        f"launches {got_launches} (want {want_launches}); plain calls {plain}")
+    if not finite or over:
+        failures.append(f"({arch} chain) positions over the limit: {over}, "
+                        f"finite {finite}")
+    if got_launches != want_launches or any(plain.values()):
+        failures.append(f"({arch} chain) launches {got_launches}, want "
+                        f"{want_launches}; plain calls {plain}")
+    del params, fwd, chain, plain32, plain64
+    release()
+    say(f"  ({arch} chain: {time.perf_counter() - t_part:.1f} s)")
+    return {"layers": cfg.n_layers, "batch": b, "seq": t,
+            "rel_logit_err_max": worst["chain_vs_kernel"], "at_position": at,
+            "against_f64": {k: worst[k] for k in ("kernel_vs_f64",
+                                                   "chain_vs_f64",
+                                                   "plain_f32_vs_f64")},
+            "limit_share": share, "noise_limits": noisy,
+            "noise_x": P22["noise_x"],
+            "floor": P22["chain_rel"],
+            "rel_logit_err": [float(x) for x in r],
+            "noise": [float(x) for x in noise], "float64_chain": f64,
+            "forward_ms": fwd_ms, "decode_ms_per_token": chain_ms,
+            "launches": got_launches}
+
+
+def p22_train(name: str, argv: list, failures: list) -> dict:
+    """(d) a training example on the card: its counts against the
+    reference's, its flash launches (2 forward with the recompute and 3
+    backward per layer per step run), no plain or library attention."""
+    release()
+    reset_family_launches()
+    with counting_calls(PLAIN_SCANS[2:]) as plain:
+        mod, r, _ = run_example(name, argv)
+    launches = family_launches()
+    layers = (mod.build_cfg(False).n_layers if hasattr(mod, "build_cfg")
+              else get_config("phi3-mini-3.8b").reduced().n_layers)
+    got = {k: r[k] for k in P22_TRAIN_COUNTS[name]}
+    if got != P22_TRAIN_COUNTS[name]:
+        failures.append(f"({name}) {got}, want the reference's "
+                        f"{P22_TRAIN_COUNTS[name]}")
+    steps = r["steps_run"]
+    want = {"flash_attention_fwd": 2 * layers * steps,
+            "flash_attention_bwd": 3 * layers * steps,
+            "flash_attention_fwd_wide": 0, "flash_attention_bwd_wide": 0}
+    have = {k: launches[k] for k in want}
+    say(f"  ({name}) {layers} layers x {steps} steps run: flash launches "
+        f"{have} (want {want}); plain calls {plain}")
+    if have != want or any(plain.values()):
+        failures.append(f"({name}) flash launches {have}, want {want}; "
+                        f"plain calls {plain}")
+    return {"counts": got, "layers": layers, "launches": have,
+            "losses": [r["losses"][0], r["losses"][-1]]}
+
+
+def p22_examples(failures: list) -> dict:
+    """(d) the quickstart, fault_tolerant at ``--steps 30``, xPic and the
+    serve example's fleet over two spawned workers on the card."""
+    out = {"quickstart": p22_train("torch_quickstart", [], failures),
+           "fault_tolerant": p22_train("torch_fault_tolerant_train",
+                                       ["--steps", str(P22["ft_steps"])],
+                                       failures)}
+    release()
+    _, r, _ = run_example("torch_xpic_offload", [])
+    got = {k: r[k] for k in P22_XPIC_COUNTS}
+    if got != P22_XPIC_COUNTS or not r["device"].startswith("cuda"):
+        failures.append(f"(xpic) {got} on {r['device']}, want the "
+                        f"reference's {P22_XPIC_COUNTS} on the card")
+    out["xpic"] = {"counts": got, "device": r["device"],
+                   "energy": [r["energy"][0], r["energy"][-1]]}
+    release()
+    _, r, _ = run_example("torch_serve", list(P22["fleet"]))
+    layers = get_config(P22["fleet"][-1]).reduced().n_layers
+    workers = []
+    for st in r["worker_stats"]:
+        k, s = st["kernels"], st["scheduler"]
+        iters = s["prefill_calls"] * scheduler.PREFILL_BUCKET + s["steps"]
+        workers.append({"paged_launches": k["paged_attention"],
+                        "token_iterations": iters,
+                        "plain_calls": k["decode_attention"]})
+        if (k["paged_attention"] != layers * iters or k["decode_attention"]
+                or k["paged_attention_quant"]):
+            failures.append(f"(fleet) worker {k}, want {layers} layers x "
+                            f"{iters} token iterations of paged launches only")
+    if r["tokens"] != 6 * 6 or r["saved"] <= 0:
+        failures.append(f"(fleet) {r['tokens']} tokens, {r['saved']} saved")
+    say(f"  (fleet) workers' paged launches and token iterations: {workers}")
+    out["fleet"] = {k: r[k] for k in ("tokens", "saved", "computed", "adopted",
+                                      "shared_hits", "throttle_events")}
+    out["fleet"]["workers"] = workers
+    return out
+
+
+def phase22() -> dict:
+    say("== phase 22: the port's examples on the card: (a) rwkv6-3b and (b) "
+        "zamba2-2.7b served at full size through examples/torch_serve.py, "
+        "(c) their float32 decode chains against the scan kernels' forward, "
+        "(d) the quickstart, fault_tolerant, xPic and fleet examples")
+    t_phase = time.perf_counter()
+    failures = []
+    out = {"serve": {}, "chain": {}}
+    for arch in P22["serve"]:
+        out["serve"][arch] = p22_serve(arch, failures)
+        out["chain"][arch] = p22_chain(arch, failures)
+    out["examples"] = p22_examples(failures)
+    out["seconds"] = time.perf_counter() - t_phase
+    say(f"  phase 22 record: {json.dumps(out)}; took {out['seconds']:.1f} s")
+    if failures:
+        raise AssertionError("phase 22 gates failed:\n  " + "\n  ".join(failures))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -5955,6 +6440,27 @@ def main() -> int:
         for name, rec in run["kernels"].items():
             kernels[name]["phase21_" + run["arch"]] = {
                 **rec, "launches": run["launches"][name]}
+
+    p22 = phase22()
+    chain, ex = p22["chain"], p22["examples"]
+    for arch, name in (("rwkv6-3b", "wkv6_fwd"), ("zamba2-2.7b", "mamba2_ssd_fwd")):
+        kernels[name]["launches_phase22"] = chain[arch]["launches"][name]
+        kernels[name]["phase22"] = {
+            "serve": {k: v for k, v in p22["serve"][arch].items() if k != "runs"},
+            "chain": {k: v for k, v in chain[arch].items()
+                      if k not in ("rel_logit_err", "noise", "float64_chain")},
+            "float64_chain": chain[arch]["float64_chain"] and {
+                k: v for k, v in chain[arch]["float64_chain"].items()
+                if k != "rel"}}
+    for kind in ("fwd", "bwd"):
+        name = f"flash_attention_{kind}"
+        kernels[name]["launches_phase22"] = {
+            key: ex[key]["launches"][name] for key in ("quickstart",
+                                                       "fault_tolerant")}
+    kernels["flash_attention_fwd"]["launches_phase22"]["zamba2-2.7b_chain"] = (
+        chain["zamba2-2.7b"]["launches"]["flash_attention_fwd"])
+    kernels["paged_attention"]["launches_phase22_fleet_workers"] = sum(
+        w["paged_launches"] for w in ex["fleet"]["workers"])
 
     say(smi)
     say(json.dumps({"kernels": list(kernels.values())}))

@@ -262,7 +262,7 @@ class ResilienceSession:
             self.stats["aborted"] += 1
             self.tracer.end(_sp, committed=False)
             raise
-        self.tracer.end(_sp, committed=True)
+        self.tracer.end(_sp, committed=True, bytes=record.total_bytes)
         wall = time.perf_counter() - t0
         self.policy.observe_save(record, wall)
         self.last_checkpoint_step = step

@@ -233,11 +233,12 @@ def wkv6(r, k, v, w, u, state=None, use_kernel: Optional[bool] = None):
 
 
 def wkv6_decode_step(r, k, v, w, u, state):
-    """Single-token WKV6: r, k, v, w (B, H, D); state (B, H, D, D)."""
-    f32 = torch.float32
-    r_, k_, v_, w_ = (x.to(f32) for x in (r, k, v, w))
+    """Single-token WKV6: r, k, v, w (B, H, D); state (B, H, D, D).  In
+    f32, or float64 for float64 inputs, as ``wkv6_chunked``."""
+    acc = torch.promote_types(r.dtype, torch.float32)
+    r_, k_, v_, w_ = (x.to(acc) for x in (r, k, v, w))
     kv = k_[..., :, None] * v_[..., None, :]
-    y = torch.einsum("bhd,bhde->bhe", r_, state + u.to(f32)[..., :, None] * kv)
+    y = torch.einsum("bhd,bhde->bhe", r_, state + u.to(acc)[..., :, None] * kv)
     state = w_[..., :, None] * state + kv
     return y.to(r.dtype), state
 

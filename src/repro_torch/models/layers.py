@@ -30,6 +30,14 @@ def torch_dtype(name: str) -> torch.dtype:
     return dt
 
 
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the float32 islands (norms, decays, recurrent states)
+    compute in: float32 for float32 and narrower inputs, as the
+    reference; float64 stays float64, so a float64 run is an oracle for
+    the float32 paths."""
+    return torch.promote_types(dtype, torch.float32)
+
+
 # ---------------------------------------------------------------------- #
 # param tables
 # ---------------------------------------------------------------------- #
@@ -129,9 +137,9 @@ def rmsnorm(x: torch.Tensor, gamma: torch.Tensor, eps: float = 1e-5,
     if fast:
         ms = torch.mean(x.square(), dim=-1, keepdim=True, dtype=torch.float32)
         return x * torch.rsqrt(ms + eps).to(x.dtype) * gamma.to(x.dtype)
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x.dtype))
     rms = torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-    return (x32 * rms * gamma.float()).to(x.dtype)
+    return (x32 * rms * gamma.to(x32.dtype)).to(x.dtype)
 
 
 def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
@@ -142,11 +150,11 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         inv = torch.rsqrt(ms - mu * mu + eps).to(x.dtype)
         return ((x - mu.to(x.dtype)) * inv * gamma.to(x.dtype)
                 + beta.to(x.dtype))
-    x32 = x.float()
+    x32 = x.to(acc_dtype(x.dtype))
     mu = x32.mean(dim=-1, keepdim=True)
     var = x32.var(dim=-1, keepdim=True, correction=0)
     y = (x32 - mu) * torch.rsqrt(var + eps)
-    return (y * gamma.float() + beta.float()).to(x.dtype)
+    return (y * gamma.to(y.dtype) + beta.to(y.dtype)).to(x.dtype)
 
 
 def apply_norm(cfg, x: torch.Tensor, p: Dict[str, torch.Tensor]) -> torch.Tensor:

@@ -136,15 +136,17 @@ def _ddlerp(p, x, dx):
 
 
 def _decay(p, xw: torch.Tensor) -> torch.Tensor:
-    """``w = exp(-exp(w0 + lora(xw)))`` in f32, exponent clipped to
-    [-8, 1] (so w lies in [e^-e, 1))."""
+    """``w = exp(-exp(w0 + lora(xw)))`` in f32 (float64 for float64
+    inputs), exponent clipped to [-8, 1] (so w lies in [e^-e, 1))."""
     dec = torch.tanh(xw @ p["decay_w1"]) @ p["decay_w2"]
-    return torch.exp(-torch.exp((p["w0"] + dec).float().clamp(-8.0, 1.0)))
+    x = p["w0"] + dec
+    return torch.exp(-torch.exp(x.to(L.acc_dtype(x.dtype)).clamp(-8.0, 1.0)))
 
 
 def _group_norm(p, y: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
-    """Per-head group norm in f32 (population variance, as ``jnp.var``)."""
-    y32 = y.float()
+    """Per-head group norm in f32 (population variance, as ``jnp.var``);
+    float64 stays float64."""
+    y32 = y.to(L.acc_dtype(y.dtype))
     mu = y32.mean(-1, keepdim=True)
     var = y32.var(-1, keepdim=True, correction=0)
     return ((y32 - mu) * torch.rsqrt(var + GROUP_NORM_EPS) * p["ln_x_g"]
@@ -226,10 +228,11 @@ def cache_table(cfg: ArchConfig, batch: int, max_len: int) -> Dict[str, Any]:
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int,
                dtype: Optional[torch.dtype] = None, device="cuda"):
-    # WKV state is fp32 (recurrence numerics); shifts follow compute dtype.
-    c = L.materialize(None, cache_table(cfg, batch, max_len), torch.float32,
-                      device)
+    # WKV state is fp32 (recurrence numerics; float64 for a float64
+    # compute dtype); shifts follow compute dtype.
     cd = dtype or L.torch_dtype(cfg.compute_dtype)
+    c = L.materialize(None, cache_table(cfg, batch, max_len),
+                      L.acc_dtype(cd), device)
     c["shift_tm"] = c["shift_tm"].to(cd)
     c["shift_cm"] = c["shift_cm"].to(cd)
     return c

@@ -281,14 +281,29 @@ def check_checkpoint_bytes(pair):
 
 
 _STARCODER2 = {}
+STARCODER2_CHECKS = ["forward", "loss_and_grads", "decode"]
 
 
-@pytest.mark.parametrize("check", ["forward", "loss_and_grads", "decode"])
-def test_starcoder2_7b(check):
-    """Reduced starcoder2-7b (LayerNorm with a bias, GELU MLP, RoPE theta
-    1e5; 4 heads over 4 kv heads at this size) against the reference, at
-    the checks' tolerances."""
-    if not _STARCODER2:
-        _STARCODER2["pair"] = make_pair("starcoder2-7b")
+@pytest.mark.parametrize("arch,check", [
+    *(pytest.param("starcoder2-7b", c, id=c) for c in STARCODER2_CHECKS),
+    *(pytest.param("starcoder2-15b", c, id=f"15b-{c}")
+      for c in STARCODER2_CHECKS)])
+def test_starcoder2_7b(arch, check):
+    """Reduced starcoder2-7b and starcoder2-15b (LayerNorm with a bias,
+    GELU MLP, RoPE theta 1e5; 4 heads over 4 kv heads at this size)
+    against the reference, at the checks' tolerances."""
+    if arch not in _STARCODER2:
+        _STARCODER2[arch] = make_pair(arch)
     {"forward": check_forward, "loss_and_grads": check_loss_and_grads,
-     "decode": check_decode}[check](_STARCODER2["pair"])
+     "decode": check_decode}[check](_STARCODER2[arch])
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "starcoder2-15b"])
+def test_starcoder2_published_configs_match_reference(arch):
+    """The published configs of both packages, field by field (the
+    reduced ones follow from them in each package's ``reduced``)."""
+    want, got = jget_config(arch), get_config(arch)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (dataclasses.asdict(got.reduced())
+            == dataclasses.asdict(want.reduced()))
+    assert got.param_count() == want.param_count()

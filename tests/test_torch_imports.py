@@ -1,6 +1,6 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
-port's tools (``tools/*.py``) import neither JAX nor anything of the
-reference package ``repro``."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py``, the port's
+tools (``tools/*.py``) and its examples (``examples/torch_*.py``) import
+neither JAX nor anything of the reference package ``repro``."""
 
 import json
 import os
@@ -11,6 +11,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = ("torch_quickstart", "torch_fault_tolerant_train", "torch_serve",
+            "torch_xpic_offload")
 
 
 def port_modules():
@@ -57,9 +59,12 @@ def test_no_jax_or_reference_import_lines():
     pattern = re.compile(r"^\s*(import jax|from jax|import repro\b(?!_torch)"
                          r"|from repro\.|from repro import)", re.M)
     tools = sorted((ROOT / "tools").glob("*.py"))    # the port's own tools
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools
+    examples = sorted((ROOT / "examples").glob("torch_*.py"))
+    files = (sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools
+             + examples)
     assert ROOT / "chip_smoke.py" in files and (ROOT / "chip_smoke.py").exists()
     assert {f.name for f in tools} >= {"flash_variants.py", "paged_variants.py"}
+    assert {f.stem for f in examples} >= set(EXAMPLES)
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pattern.search(f.read_text())]
     assert offenders == []
@@ -89,3 +94,28 @@ def test_registry_has_the_recurrent_families_and_names_the_rest():
     assert fams["whisper-tiny"] == "repro_torch.models.whisper"
     assert fams["paligemma-3b"] == "repro_torch.models.paligemma"
     assert fams["loaded"] == []
+
+
+def test_port_examples_exist_and_import_no_jax_and_no_reference():
+    """The four examples of the port sit beside their counterparts, and
+    importing each (``main`` does not run) loads neither JAX nor anything
+    of ``repro``."""
+    for name in EXAMPLES:
+        assert (ROOT / "examples" / f"{name}.py").is_file()
+        assert (ROOT / "examples" / f"{name[len('torch_'):]}.py").is_file()
+    code = (
+        "import importlib.util, json, sys\n"
+        f"for name in {list(EXAMPLES)!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples/{name}.py')\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    assert callable(mod.main)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n == 'jax' or n.startswith('jax.')\n"
+        "             or n == 'repro' or n.startswith('repro.'))\n"
+        "print(json.dumps(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []

@@ -24,6 +24,8 @@ Tolerances, all float32:
 * the trainer's kill / recover run and the checkpoint bytes: exact.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,8 +36,10 @@ import test_torch_family_parity as fp
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.rwkv6_scan import wkv6_pallas
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
+from repro_torch.models import get_model
 
 ARCH = "rwkv6-3b"
 SCAN_TOL = dict(atol=5e-5, rtol=1e-4)
@@ -173,6 +177,39 @@ def test_train_steps_match_reference(pair):
 
 def test_decode_chain_matches_reference(pair):
     fp.check_decode(pair)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_decode_chain_equals_forward_in_the_compute_dtype(dtype):
+    """The port alone, reduced rwkv6-3b: the decode chain token by token
+    against one forward on the plain path, both in ``dtype``.  Under
+    float64 every float32 island (norms, decays, the WKV state) computes
+    in float64, so the two agree to float64 rounding (1e-12 relative):
+    the oracle the card's full-depth float32 chain is held against.
+    float32 keeps its f32 state, at the family tolerance."""
+    cfg = dataclasses.replace(get_config(ARCH).reduced(), compute_dtype=dtype)
+    model = get_model(cfg)
+    params = model.init(0, cfg, device="cpu")
+    b, n = 2, 40
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, n)))
+    with torch.no_grad():
+        fwd, _ = model.forward(params, {"tokens": tokens}, cfg, remat=False)
+        cache = model.init_cache(cfg, b, n, device="cpu")
+        assert cache["wkv_state"].dtype == getattr(torch, dtype)
+        steps = []
+        for i in range(n):
+            logits, cache = model.decode_step(params, cache, tokens[:, i], i,
+                                              cfg)
+            steps.append(logits)
+    chain = torch.stack(steps, 1)[..., :cfg.vocab_size].double()
+    fwd = fwd[..., :cfg.vocab_size].double()
+    assert chain.dtype == fwd.dtype
+    if dtype == "float64":
+        rel = (chain - fwd).abs().amax(dim=(0, 2)) / fwd.abs().amax(dim=(0, 2))
+        assert float(rel.max()) <= 1e-12, rel
+    else:
+        close(chain.float(), fwd.float().numpy(), fp.LOGIT_TOL)
 
 
 def test_trainer_kill_and_recover_equals_uninterrupted_run():
